@@ -1,5 +1,5 @@
-# Runtime image for pollen-tpu (CPU backend; TPU runtimes mount their
-# own libtpu). Reference analogue: the repo Dockerfile.
+# Runtime image for pollen-tpu (CPU backend; a GPU image installs
+# jax[cuda] instead). Reference analogue: the repo Dockerfile.
 
 FROM python:3.12-slim
 

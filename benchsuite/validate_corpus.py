@@ -136,12 +136,10 @@ def main(argv=None) -> None:
         print("VALIDATION OK (bench skipped)")
         return
 
-    # 3. Single-chip steps/s on the ingested graph (chained timing —
-    # see bench.py for why single dispatches mislead).
+    # 3. Single-device steps/s on the ingested graph (bench.py's
+    # block_until_ready timing on the index the router picks).
     sys.path.insert(0, str(HERE.parent))
     import bench as bench_mod
-
-    import jax
 
     from pollen_tpu.flatgfa import parse_gfa_file
     from pollen_tpu.ops.depth import _best_masked_impl
@@ -152,15 +150,12 @@ def main(argv=None) -> None:
 
     dg_host = build_device_graph(g, minimal=True, device="host")
     impl = _best_masked_impl(dg_host)
-    if impl not in ("ell", "cross"):
-        impl = "scan" if jax.default_backend() != "cpu" else "xla"
     dg = bench_mod.project_for_impl(dg_host, impl)
     print(
         f"# ingest {time.perf_counter() - t0:.1f}s, impl {impl}, "
         f"S={g.num_steps}"
     )
-    bench_mod.measure_call_overhead()
-    per_query = bench_mod.measure_depth(dg, reps=2, chain=6, impl=impl)
+    per_query = bench_mod.measure_depth(dg, reps=20, impl=impl)
     print(
         f"RESULT {args.corpus}: {g.num_steps / per_query / 1e9:.2f} G "
         f"steps/s ({per_query * 1e6:.1f} us/query, impl {impl})"

@@ -22,7 +22,7 @@ def main(path: str) -> None:
 
     g = parse_gfa_file(path)
     # ell_objective="batch" plans the resident index for batched
-    # throughput (2.91 us/query at Q=32 on the bench graph).
+    # throughput.
     dg = build_device_graph(g, ell_objective="batch")
 
     names = [g.path_name_bytes(i).decode() for i in range(g.num_paths)]

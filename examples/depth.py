@@ -26,10 +26,9 @@ def main(path: str) -> None:
     walked = depth_by_walking(graph)
 
     # The same query as one vectorized histogram over the flat arrays.
-    from pollen_tpu.device import auto_platform, build_device_graph
+    from pollen_tpu.device import build_device_graph
     from pollen_tpu.ops.depth import seg_depth_with_uniq
 
-    auto_platform(graph.arrays.num_steps)
     vectorized, _uniq = seg_depth_with_uniq(build_device_graph(graph.arrays))
     assert all(int(vectorized[i]) == d for i, d in walked.items())
 

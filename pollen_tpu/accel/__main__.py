@@ -84,9 +84,6 @@ def main() -> None:
         return
 
     path_ids, consider = parse_depth_json(memories)
-    from ..device import auto_platform
-
-    auto_platform(int(path_ids.size))
     depth, uniq = run_accel(path_ids, consider)
     sys.stdout.write(depth_table_from_outputs(depth, uniq))
 

@@ -240,12 +240,8 @@ class FlatGFA:
     def device(self):
         """The device-resident index (built lazily, cached)."""
         if self._dg is None:
-            from .device import auto_platform, build_device_graph
+            from .device import build_device_graph
 
-            # Small graphs run on CPU: the accelerator's dispatch and
-            # transfer latency dwarfs the compute (see device.auto_platform;
-            # the CLI makes the same routing call in cli.py).
-            auto_platform(self._a.num_steps)
             self._dg = build_device_graph(self._a)
         return self._dg
 

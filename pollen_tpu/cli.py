@@ -47,12 +47,6 @@ def _store(args: argparse.Namespace, g: GraphArrays) -> bool:
     return False
 
 
-def _choose_platform(g: GraphArrays) -> None:
-    from .device import auto_platform
-
-    auto_platform(g.num_steps)
-
-
 def _emit_transform(args, out, arena: GraphArrays, **emit_kw) -> None:
     """Write a transform result: in place into the -i binary under -m,
     otherwise as GFA text."""
@@ -282,10 +276,6 @@ def _main(argv: Optional[List[str]] = None) -> None:
         return
 
     g = _load(args)
-    # Route compute to the right backend for this graph size before any
-    # query can initialize a jax backend (a tiny graph on the remote
-    # accelerator pays seconds of compile/transfer latency for nothing).
-    _choose_platform(g)
 
     if args.command == "serve":
         _serve(parser, args, g)
@@ -340,9 +330,8 @@ def _serve(parser: argparse.ArgumentParser, args, g: GraphArrays) -> None:
     (e.g. ``depth -d -s subset.txt``); the response is the command's
     normal output followed by a frame line ``##end\\tok`` or
     ``##end\\terror\\t<message>``. This is the production serving
-    shape: parse + ingest + compile once, answer many queries (the
-    crossing-matrix index makes each masked-depth answer one MXU
-    pass).
+    shape: parse + ingest + compile once, answer many queries against
+    the resident index.
     """
     import shlex
 

@@ -1,3 +1,1 @@
-"""Pallas TPU kernels for the hot loops."""
-
-from .segscan import masked_depth_cumsums, pallas_available  # noqa: F401
+"""Masked-depth index builders and their query reductions."""

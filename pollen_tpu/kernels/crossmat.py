@@ -1,4 +1,4 @@
-"""Crossing-matrix depth: masked depth + uniq as one MXU pass.
+"""Crossing-matrix depth: masked depth + uniq as matrix products.
 
 The run-level index (device.py) densified over (path, segment) is a
 matrix ``A[p, n] = number of steps of segment n on path p`` — the
@@ -8,11 +8,9 @@ algebra, not data movement:
     depth = mask @ A          (crossings per segment)
     uniq  = mask @ min(A, 1)  (distinct selected paths per segment)
 
-No gathers, no scatters, no scan: one streamed read of A feeding the
-MXU, with outputs landing directly at segment granularity (the
-boundary-diff stage of the scan pipeline — XLA's slow TPU gather —
-disappears entirely). Batched queries become a real matmul,
-``masks @ A``, amortizing the single read of A across Q masks.
+No gathers, no scatters, no scan: one streamed read of A, with outputs
+landing directly at segment granularity. Batched queries become a real
+matmul, ``masks @ A``, amortizing the single read of A across Q masks.
 
 Storage: counts clip at a small maximum and the clipped remainders
 move to a dense **residual sidecar** (device.py) — crossings follow a
@@ -22,21 +20,16 @@ columns restores exact depth with one tiny extra dot + a K-sized
 scatter instead of a per-cell COO scatter. Two on-device layouts:
 
 * **nibble** (default): two path rows per byte, counts clipped at 15
-  — 0.5 bytes of HBM per cell. The kernel splits each byte into
-  low/high nibbles, giving the unpacked rows in [0::2 | 1::2] order;
-  the *mask* is permuted to match (``fold_mask``), which leaves the
-  dot's result identical because the contraction is over paths.
+  — 0.5 bytes of device memory per cell. The unpack splits each byte
+  into low/high nibbles, giving the unpacked rows in [0::2 | 1::2]
+  order; the *mask* is permuted to match (``fold_mask``), which leaves
+  the dot's result identical because the contraction is over paths.
 * **int8**: counts clipped at 127, 1 byte per cell — the fallback
   when a graph's residual sidecar under nibble clipping would out-
   weigh the packing savings.
 
-Mosaic (this build) cannot lower sub-int32 dots, so kernels upcast
-each VMEM tile to bf16 (integers <= 127 are exact) and accumulate in
-f32 (exact below 2^24 crossings per segment); HBM only ever sees the
-packed bytes.
-
 Reference semantics: flatgfa/src/ops/depth.rs:15-39. The dense form
-trades HBM capacity for a gather-free query; device.py builds it only
+trades device memory for a gather-free query; device.py builds it only
 under a size budget.
 """
 
@@ -49,30 +42,11 @@ import jax
 import jax.numpy as jnp
 
 LANES = 128
-# Widest lane-dim tile of A per grid step; narrowed when the path
-# dimension is large so a tile stays within the VMEM budget. Tuned on
-# v5e (nibble, P=128, N=2^18): 2048 -> 69 us, 4096 -> 53 us,
-# 8192 -> 48 us, 16384 -> 47 us per query — but the 16384 tile also
-# balloons the Mosaic compile from seconds to minutes (lane-block
-# unrolling), so 8192 is the sweet spot for a serving engine that
-# compiles per graph shape.
-SEG_BLOCK = 8192
-# Elements per VMEM tile cap (unpacked cells): p_pad * tile <= this.
-_TILE_ELEMS = 8 * 2**20
 CLIP = 127  # largest count stored per int8 cell
 CLIP_NIBBLE = 15  # largest count stored per nibble cell
 # Segment id of residual-sidecar padding columns: out of range for any
 # depth vector and any column shard, so mode="drop" scatters skip it.
 RES_SENTINEL = 2**30
-
-
-def pick_seg_block(p_pad: int, n_pad: int) -> int:
-    """Largest tile width (power-of-two divisor of SEG_BLOCK) whose
-    (p_pad, width) unpacked tile fits the VMEM budget."""
-    width = SEG_BLOCK
-    while width > LANES and (p_pad * width > _TILE_ELEMS or n_pad % width):
-        width //= 2
-    return width
 
 
 def fold_mask(mask: jax.Array, axis: int = 0) -> jax.Array:
@@ -84,149 +58,9 @@ def fold_mask(mask: jax.Array, axis: int = 0) -> jax.Array:
     return jnp.concatenate([even, odd], axis=axis)
 
 
-def _unpack_tile(t: jax.Array) -> jax.Array:
-    """uint8 (P/2, w) -> bf16 (P, w) in [0::2 | 1::2] row order.
-
-    Goes through int32 (zero-extended) so the shift/and stay on plain
-    VPU int ops — Mosaic's sub-int32 bitwise support is spotty. The
-    high half needs no mask: the zero-extended byte's bits above 7 are
-    already clear, so ``>> 4`` alone yields the high nibble (measured
-    ~5 us/query on v5e — the VPU, not the MXU or DMA, is this kernel's
-    critical path, so every elementwise op counts)."""
-    t32 = t.astype(jnp.int32)
-    return jnp.concatenate([t32 & 15, t32 >> 4], axis=0).astype(
-        jnp.bfloat16
-    )
-
-
-def _kernel(mask_ref, a_ref, depth_ref, uniq_ref=None, *, nibble, rotate):
-    from jax.experimental import pallas as pl
-
-    if nibble:
-        a = _unpack_tile(a_ref[:])  # (P_pad, width) bf16
-    else:
-        a = a_ref[:].astype(jnp.bfloat16)
-    m = mask_ref[:]  # (8, P_pad) bf16; row 0 = (folded) mask
-    depth = jax.lax.dot_general(
-        m,
-        a,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    def _store(ref, row):
-        # Only lane-row 0 of the dot carries the mask's result. With
-        # ``rotate``, eight consecutive grid steps share one (8, width)
-        # output block (index map i // 8) and each writes its own
-        # sublane — a fully-populated store, where the plain (1, width)
-        # store pays 8x sublane write amplification on the hardware
-        # (measured 25.6 -> 9.7 us/query on the ELL kernel's identical
-        # pattern).
-        if rotate:
-            r = pl.program_id(0) % 8
-            ref[pl.dslice(r, 1), :] = row
-        else:
-            ref[:] = row
-
-    _store(depth_ref, depth[:1, :].astype(jnp.int32))
-    if uniq_ref is None:
-        # Depth-only variant: skipping the indicator skips the one
-        # full-size VPU op that does not hide under the DMA (the
-        # measured 31 vs 47 us/query gap at bench shape — CLAUDE.md).
-        return
-    # Indicator without a comparison: counts are integers >= 0, so
-    # min(a, 1) is exact — and Mosaic (this build) rejects bf16
-    # compares outright.
-    ind = jnp.minimum(a, jnp.bfloat16(1))
-    uniq = jax.lax.dot_general(
-        m,
-        ind,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    _store(uniq_ref, uniq[:1, :].astype(jnp.int32))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("nibble", "interpret", "uniq", "force")
-)
-def masked_cross_depth(
-    cross: jax.Array,  # uint8[P_pad/2, N_pad] packed or int8[P_pad, N_pad]
-    mask: jax.Array,  # int32/bool[P_pad] (0/1), original path order
-    nibble: bool = False,
-    interpret: bool = False,
-    uniq: bool = True,
-    force: tuple | None = None,
-):
-    """(depth, uniq) int32[N_pad] — single fused pass over ``cross``.
-
-    With ``uniq=False``, returns depth alone (one dot, no indicator).
-    ``force=(width, rotate)`` overrides the tile heuristics (probes)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    rows, n_pad = cross.shape
-    p_pad = rows * 2 if nibble else rows
-    width = pick_seg_block(p_pad, n_pad)
-    # Prefer a (possibly narrower) width whose tile count is a multiple
-    # of 8: eight grid steps then share one fully-populated (8, width)
-    # output block (see _store) instead of paying 8x sublane write
-    # amplification on (1, width) stores — but only while the rotation
-    # costs at most one halving of the tile: the r4 hrot sweep measured
-    # the full-width narrow-store form faster once tiles shrink 2x+
-    # (8.17 vs 8.76 us on the bench heavy block).
-    w2 = width
-    while w2 > LANES and (n_pad // w2) % 8:
-        w2 //= 2
-    rotate = (n_pad // w2) % 8 == 0 and w2 * 2 >= width
-    if rotate:
-        width = w2
-    if force is not None:
-        width, rotate = force
-        assert n_pad % width == 0
-    assert n_pad % width == 0 and p_pad % 8 == 0
-    g = n_pad // width
-    if nibble:
-        mask = fold_mask(mask)
-    # The mask stays bf16: an (8, P) int8 block breaks the sublane
-    # tiling (int8 wants 32 sublanes) and reads garbage on hardware.
-    m = jnp.zeros((8, p_pad), jnp.bfloat16).at[0].set(
-        mask.astype(jnp.bfloat16)
-    )
-
-    a_block = pl.BlockSpec(
-        (rows, width), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    if rotate:
-        o_block = pl.BlockSpec(
-            (8, width), lambda i: (i // 8, 0), memory_space=pltpu.VMEM
-        )
-        out_shape = jax.ShapeDtypeStruct((g, width), jnp.int32)
-    else:
-        o_block = pl.BlockSpec(
-            (1, width), lambda i: (0, i), memory_space=pltpu.VMEM
-        )
-        out_shape = jax.ShapeDtypeStruct((1, n_pad), jnp.int32)
-    out_specs = (o_block, o_block) if uniq else o_block
-    # Trace with x64 off: int64 grid literals break Mosaic lowering.
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            functools.partial(_kernel, nibble=nibble, rotate=rotate),
-            grid=(g,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM), a_block],
-            out_specs=out_specs,
-            out_shape=(out_shape, out_shape) if uniq else out_shape,
-            interpret=interpret,
-        )(m, cross)
-    # The rotated (g, width) output reshapes to natural column order.
-    if uniq:
-        return out[0].reshape(-1), out[1].reshape(-1)
-    return out.reshape(-1)
-
-
 def unpack_cross(cross: jax.Array) -> jax.Array:
-    """Portable nibble unpack: uint8 (P/2, N) -> int32 (P, N) in
-    [0::2 | 1::2] row order (pair with ``fold_mask``)."""
+    """Nibble unpack: uint8 (P/2, N) -> int32 (P, N) in [0::2 | 1::2]
+    row order (pair with ``fold_mask``)."""
     t = cross.astype(jnp.int32)
     return jnp.concatenate([t & 15, t >> 4], axis=0)
 
@@ -235,124 +69,40 @@ def unpack_cross(cross: jax.Array) -> jax.Array:
 def masked_cross_depth_xla(
     cross: jax.Array, mask: jax.Array, nibble: bool = False
 ) -> Tuple[jax.Array, jax.Array]:
-    """Portable two-dot fallback (CPU, or shapes the kernel rejects)."""
+    """(depth, uniq) int32[N_pad] for one mask: a masked column sum in
+    int32 (exact; no float rounding mode applies). Written as a
+    multiply-reduce rather than a dot so XLA fuses the unpack into one
+    pass over the packed bytes."""
     if nibble:
-        a = unpack_cross(cross).astype(jnp.float32)
+        a = unpack_cross(cross)
         mask = fold_mask(mask)
     else:
-        a = cross.astype(jnp.float32)
-    m = mask.astype(jnp.float32)
-    depth = jnp.dot(m, a, preferred_element_type=jnp.float32)
-    uniq = jnp.dot(
-        m, jnp.minimum(a, 1.0), preferred_element_type=jnp.float32
-    )
-    return depth.astype(jnp.int32), uniq.astype(jnp.int32)
+        a = cross.astype(jnp.int32)
+    m = mask.astype(jnp.int32)[:, None]
+    depth = jnp.sum(m * a, axis=0, dtype=jnp.int32)
+    uniq = jnp.sum(m * (a > 0), axis=0, dtype=jnp.int32)
+    return depth, uniq
 
 
 @functools.partial(jax.jit, static_argnames=("nibble",))
 def batched_cross_depth(
     cross: jax.Array, masks: jax.Array, nibble: bool = False
 ) -> Tuple[jax.Array, jax.Array]:
-    """(depth, uniq) int32[Q, N_pad] for Q masks at once: two MXU
-    matmuls reading A once each — the serving shape (one resident
-    graph, a stream of subset queries).
-
-    Portable XLA form; note XLA materializes a full bf16 copy of the
-    packed matrix, so on TPU prefer ``batched_cross_depth_pallas``,
-    which unpacks tile-by-tile in VMEM and keeps HBM traffic at the
-    packed byte count."""
+    """(depth, uniq) int32[Q, N_pad] for Q masks at once: two matmuls
+    reading A once each — the serving shape (one resident graph, a
+    stream of subset queries). XLA materializes an unpacked bf16 copy
+    of A before the matmul; a fused dequantizing GEMM would stream the
+    packed bytes instead."""
     if nibble:
         a = unpack_cross(cross).astype(jnp.bfloat16)
         masks = fold_mask(masks, axis=1)
     else:
         a = cross.astype(jnp.bfloat16)
     m = masks.astype(jnp.bfloat16)
+    # Exact: operands are 0/1 masks and counts <= 127 (bf16 holds every
+    # integer up to 256), and f32 accumulation is exact below 2**24.
     depth = jnp.dot(m, a, preferred_element_type=jnp.float32)
     uniq = jnp.dot(
         m, jnp.minimum(a, jnp.bfloat16(1)), preferred_element_type=jnp.float32
     )
     return depth.astype(jnp.int32), uniq.astype(jnp.int32)
-
-
-def pick_batched_width(q_pad: int, p_pad: int, n_pad: int) -> int:
-    """Widest power-of-two tile (divisor of N_pad) whose per-step VMEM
-    footprint — the unpacked bf16 A tile (3 B/cell with its packed
-    source) plus the f32 dot results and int32 outputs (16 B/cell over
-    Q rows) — stays under a conservative budget."""
-    width = SEG_BLOCK
-    while width > LANES and (
-        (3 * p_pad + 16 * q_pad) * width > 48 * 2**20 or n_pad % width
-    ):
-        width //= 2
-    return width
-
-
-def _batched_kernel(mask_ref, a_ref, depth_ref, uniq_ref, *, nibble):
-    if nibble:
-        a = _unpack_tile(a_ref[:])  # (P_pad, width) bf16
-    else:
-        a = a_ref[:].astype(jnp.bfloat16)
-    m = mask_ref[:]  # (Q_pad, P_pad) bf16
-    depth = jax.lax.dot_general(
-        m,
-        a,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    ind = jnp.minimum(a, jnp.bfloat16(1))
-    uniq = jax.lax.dot_general(
-        m,
-        ind,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    depth_ref[:] = depth.astype(jnp.int32)
-    uniq_ref[:] = uniq.astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("nibble", "interpret"))
-def batched_cross_depth_pallas(
-    cross: jax.Array,  # uint8[P_pad/2, N_pad] packed or int8[P_pad, N_pad]
-    masks: jax.Array,  # int32/bool[Q, P_pad], original path order
-    nibble: bool = False,
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """(depth, uniq) int32[Q, N_pad]: the Q-mask generalization of
-    ``masked_cross_depth`` — one streamed read of A feeds both dots
-    for all Q queries."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    rows, n_pad = cross.shape
-    p_pad = rows * 2 if nibble else rows
-    q = masks.shape[0]
-    q_pad = -(-max(q, 8) // 8) * 8
-    width = pick_batched_width(q_pad, p_pad, n_pad)
-    assert n_pad % width == 0 and p_pad % 8 == 0
-    if nibble:
-        masks = fold_mask(masks, axis=1)
-    m = (
-        jnp.zeros((q_pad, p_pad), jnp.bfloat16)
-        .at[:q]
-        .set(masks.astype(jnp.bfloat16))
-    )
-
-    a_block = pl.BlockSpec(
-        (rows, width), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    o_block = pl.BlockSpec(
-        (q_pad, width), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    with jax.enable_x64(False):
-        depth, uniq = pl.pallas_call(
-            functools.partial(_batched_kernel, nibble=nibble),
-            grid=(n_pad // width,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM), a_block],
-            out_specs=(o_block, o_block),
-            out_shape=(
-                jax.ShapeDtypeStruct((q_pad, n_pad), jnp.int32),
-                jax.ShapeDtypeStruct((q_pad, n_pad), jnp.int32),
-            ),
-            interpret=interpret,
-        )(m, cross)
-    return depth[:q], uniq[:q]

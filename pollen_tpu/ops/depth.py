@@ -4,6 +4,9 @@ The flagship analysis (reference semantics: flatgfa/src/ops/depth.rs,
 slow_odgi/depth.py). Device side, depth is a masked segment-sum over the
 (segment, path)-sorted step index; depth.uniq counts first-occurrences
 per (segment, path) group — both scatter-free (see pollen_tpu.device).
+Subset (masked) queries run on the first resident index of: the tiered
+ELL run index, the dense crossing matrix, the run-level index, the
+step list (``_best_masked_impl``).
 """
 
 from __future__ import annotations
@@ -22,19 +25,7 @@ from ..device import (
 )
 from ..flatgfa import GraphArrays
 from ..kernels import ellscan as _ellscan
-
-# Joint-grid emission of the fused single-query split kernel: heavy
-# MXU steps ride the early grid steps alongside the tier VPU phases
-# instead of following them. Measured 13.7 vs 13.9 us/query at bench
-# shape with ellok diff=0 (r5); POLLEN_ELL_JOINT=0 restores the
-# sequential grid. See kernels/ellscan.py.
-import os as _os
-
-ELL_JOINT = _os.environ.get("POLLEN_ELL_JOINT", "1") == "1"
-# Same option for the batched kernel (off until measured to pay there:
-# batch output blocks are Q-fold bigger, so the joint grid raises the
-# per-step VMEM watermark).
-ELL_BATCH_JOINT = _os.environ.get("POLLEN_ELL_BATCH_JOINT") == "1"
+from ..kernels.crossmat import batched_cross_depth, masked_cross_depth_xla
 
 
 @jax.jit
@@ -48,12 +39,7 @@ def seg_depth_with_uniq(dg: DeviceGraph) -> Tuple[jax.Array, jax.Array]:
     trip XLA's constant folder into a multi-second compile.)
     """
     depth = dg.seg_bounds[1:] - dg.seg_bounds[:-1]
-    if dg.run_seg_bounds.shape[0] == dg.num_segments + 1:
-        uniq = dg.run_seg_bounds[1:] - dg.run_seg_bounds[:-1]
-    else:  # minimal-mode graphs: derive from group-start flags
-        pos = jnp.arange(dg.padded_steps, dtype=jnp.int32)
-        first = (pos == dg.run_start).astype(jnp.int32)
-        uniq = bounded_segment_sum(first, dg.seg_bounds)
+    uniq = dg.run_seg_bounds[1:] - dg.run_seg_bounds[:-1]
     return depth, uniq
 
 
@@ -69,7 +55,8 @@ def seg_depth_with_uniq_masked(
     dg: DeviceGraph, path_mask: jax.Array
 ) -> Tuple[jax.Array, jax.Array]:
     """(depth, unique depth) per segment, counting only paths where
-    ``path_mask`` (bool[P]) is set. XLA implementation (portable)."""
+    ``path_mask`` (bool[P]) is set: the step-level pipeline (mask
+    gather, two cumsums, boundary gathers) over the sorted step list."""
     w = _extend_mask(path_mask)[dg.step_path_sorted]
     depth = bounded_segment_sum(w, dg.seg_bounds)
     first = first_in_group_mask(w, dg.run_start)
@@ -92,121 +79,23 @@ def seg_depth_with_uniq_runs(
 
 
 @jax.jit
-def seg_depth_with_uniq_runs_fused(
+def seg_depth_with_uniq_cross(
     dg: DeviceGraph, path_mask: jax.Array
 ) -> Tuple[jax.Array, jax.Array]:
-    """Run-level masked (depth, uniq) via the fused Pallas kernel
-    (TPU production path; see kernels/runscan.py). The boundary stage
-    uses the ingest plan over ``run_seg_bounds`` when present
-    (``bnd2_w_rows``), the XLA gather otherwise."""
-    from ..kernels.runscan import masked_run_cumsums
-
-    mask_ext = _extend_mask(path_mask)
-    p_pad = -(-mask_ext.shape[0] // 128) * 128
-    mask_padded = jnp.zeros(p_pad, jnp.int32).at[: mask_ext.shape[0]].set(
-        mask_ext
-    )
-    cswc, csw = masked_run_cumsums(
-        dg.run_path, dg.run_count, mask_padded
-    )
-    if dg.bnd2_w_rows:
-        from ..kernels.gatherb import boundary_diff_planned
-
-        args = (
-            dg.bnd2_row_start,
-            dg.bnd2_loc,
-            dg.bnd2_over_tiles,
-            dg.bnd2_over_bounds,
-        )
-        kw = dict(
-            w_rows=dg.bnd2_w_rows,
-            n_bounds=dg.num_segments + 1,
-            interpret=jax.default_backend() == "cpu",
-        )
-        return (
-            boundary_diff_planned(cswc.astype(jnp.int32), *args, **kw),
-            boundary_diff_planned(csw.astype(jnp.int32), *args, **kw),
-        )
-    from ..device import boundary_diff
-
-    depth = boundary_diff(cswc, dg.run_seg_bounds)
-    uniq = boundary_diff(csw, dg.run_seg_bounds)
-    return depth, uniq
-
-
-@functools.partial(jax.jit, static_argnames=("planned_boundary",))
-def seg_depth_with_uniq_fused(
-    dg: DeviceGraph,
-    path_mask: jax.Array,
-    planned_boundary: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """Masked (depth, uniq) via the fused Pallas segmented-scan kernel
-    (TPU; one pass over the step list — see kernels/segscan.py).
-
-    ``planned_boundary=True`` runs the boundary stage through the
-    windowed one-hot MXU gather (kernels/gatherb.py) instead of XLA's
-    slow TPU gather; requires the ingest plan (``dg.bnd_w_rows > 0``).
-    """
-    from ..kernels.segscan import (
-        depth_uniq_from_cumsums,
-        masked_depth_cumsums,
-    )
-
-    mask_ext = _extend_mask(path_mask)
-    p_pad = -(-mask_ext.shape[0] // 128) * 128
-    mask_padded = jnp.zeros(p_pad, jnp.int32).at[: mask_ext.shape[0]].set(
-        mask_ext
-    )
-    csw, csf = masked_depth_cumsums(
-        dg.step_path_sorted, dg.run_start, mask_padded
-    )
-    if planned_boundary and dg.bnd_w_rows:
-        from ..kernels.gatherb import boundary_diff_planned
-
-        args = (
-            dg.bnd_row_start,
-            dg.bnd_loc,
-            dg.bnd_over_tiles,  # static tuple (meta field)
-            dg.bnd_over_bounds,
-        )
-        kw = dict(
-            w_rows=dg.bnd_w_rows,
-            n_bounds=dg.num_segments + 1,
-            interpret=jax.default_backend() == "cpu",
-        )
-        return (
-            boundary_diff_planned(csw.astype(jnp.int32), *args, **kw),
-            boundary_diff_planned(csf.astype(jnp.int32), *args, **kw),
-        )
-    return depth_uniq_from_cumsums(csw, csf, dg.seg_bounds)
-
-
-@functools.partial(jax.jit, static_argnames=("pallas",))
-def seg_depth_with_uniq_cross(
-    dg: DeviceGraph, path_mask: jax.Array, pallas: bool = False
-) -> Tuple[jax.Array, jax.Array]:
-    """Masked (depth, uniq) via the dense crossing matrix: MXU mat-vecs
-    with no gathers and no boundary stage (kernels/crossmat.py). The
-    dense residual sidecar (one tiny fused reduce + K-sized scatter)
-    restores counts clipped by the packed store."""
-    from ..kernels.crossmat import (
-        masked_cross_depth,
-        masked_cross_depth_xla,
-    )
-
+    """Masked (depth, uniq) via the dense crossing matrix: one masked
+    column sum with no gathers and no boundary stage
+    (kernels/crossmat.py). The dense residual sidecar (one tiny fused
+    reduce + K-sized scatter) restores counts clipped by the packed
+    store."""
     p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
     m = (
         jnp.zeros(p_pad, jnp.int32)
         .at[: dg.num_paths]
         .set(path_mask.astype(jnp.int32)[: dg.num_paths])
     )
-    # The kernel narrows its tile of A down to 128 lanes as the path
-    # dimension grows (crossmat.pick_seg_block); beyond 64k paths even
-    # the narrowest tile blows the VMEM budget — use the XLA dots.
-    fn = masked_cross_depth if pallas and p_pad <= 65536 else (
-        masked_cross_depth_xla
+    depth, uniq = masked_cross_depth_xla(
+        dg.cross_matrix, m, nibble=dg.cross_nibble
     )
-    depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
     if dg.cross_res_seg.size:
         # Exact int32, fused multiply-reduce over the sidecar columns;
         # sentinel columns carry an out-of-range id and drop.
@@ -215,171 +104,93 @@ def seg_depth_with_uniq_cross(
     return depth[: dg.num_segments], uniq[: dg.num_segments]
 
 
-def _check_ell_sub(dg: DeviceGraph) -> None:
-    """A DeviceGraph's tall tiers are laid out for the SUB they were
-    packed with; querying under a different POLLEN_ELL_SUB would read
-    silently-wrong layouts. The packed value is a static meta field —
-    refuse the mismatch outright (runs at trace time: ell_sub is
-    static)."""
-    from ..kernels.ellscan import SUB
-
-    if dg.ell_sub and dg.ell_sub != SUB:
-        raise ValueError(
-            f"DeviceGraph ELL index was packed with SUB={dg.ell_sub} "
-            f"but this process runs with SUB={SUB} (POLLEN_ELL_SUB); "
-            "re-ingest the graph or match the env var"
-        )
+def _ell_tiers(dg: DeviceGraph):
+    """The present tiers of the split ELL index, in ell_order order."""
+    return [t for t in (dg.cross_ell, dg.cross_ell2, dg.cross_ell3) if t.size]
 
 
-@functools.partial(jax.jit, static_argnames=("pallas",))
-def seg_depth_with_uniq_ell_parts(
-    dg: DeviceGraph, path_mask: jax.Array, pallas: bool = False
-):
+def _fold_mid(dg: DeviceGraph, tier_outs):
+    """Flatten per-tier (d, u) pairs into ``(d1, u1, d2, u2)``: tier 3,
+    when present, folds into the mid pair at exact lengths (tier-2
+    columns first, as in ell_order). Works on (..., cols) arrays."""
+    (d1, u1), rest = tier_outs[0], tier_outs[1:]
+    if not rest:
+        return d1, u1, None, None
+    if len(rest) == 1:
+        return (d1, u1) + rest[0]
+    (d2, u2), (d3, u3) = rest
+    nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
+    return (
+        d1,
+        u1,
+        jnp.concatenate([d2[..., :nm], d3[..., :nm2]], axis=-1),
+        jnp.concatenate([u2[..., :nm], u3[..., :nm2]], axis=-1),
+    )
+
+
+@jax.jit
+def seg_depth_with_uniq_ell_parts(dg: DeviceGraph, path_mask: jax.Array):
     """Masked (depth, uniq) via the tiered split ELL run index, as the
     raw per-class part vectors — the form production serving consumes
     (the sharded query returns the same parts, and host rendering
     composes them anyway, so the device never pays the concatenate).
 
-    Tier columns: short int32 reductions over K1/K2 slots per segment
-    with bitwise mask-word selection — no gathers, no boundary stage,
-    ~4 B of HBM per run (kernels/ellscan.py, tall layout). Heavy
-    columns: one MXU pass over their nibble-packed sub-matrix
-    (kernels/crossmat.py) plus the tiny int32 clip residual. The empty
-    class (segments no path crosses) contributes identical zeros known
-    at ingest — no part at all.
+    Tier columns: short int32 reductions over the K slots of each
+    column (kernels/ellscan.py). Heavy columns: one masked column sum
+    over their nibble-packed sub-matrix plus the tiny int32 clip
+    residual.
+    The empty class (segments no path crosses) contributes identical
+    zeros known at ingest — no part at all.
 
     Returns ``(d1, u1, d2, u2, dh, uh)``; the tier-2 and heavy pairs
     are None when the class is absent. When a third tier exists
     (``dg.ell_k3``), its part is folded into the mid pair — ``d2``/
     ``u2`` then hold exactly ``ell_num_mid + ell_num_mid2`` entries in
     ``ell_order`` order (tier-2 columns first)."""
-    from ..kernels.crossmat import masked_cross_depth, masked_cross_depth_xla
-    from ..kernels.ellscan import (
-        masked_ell_depth_tall,
-        masked_ell_depth_xla,
-        masked_ell_splitn_depth,
-        unfold_ell_tall,
-        unpair_ell16,
-    )
-
-    _check_ell_sub(dg)
     m = path_mask.astype(jnp.int32)[: dg.num_paths]
-    has_mid = dg.cross_ell2.size > 0
-    has_mid2 = dg.cross_ell3.size > 0
-    has_heavy = dg.ell_heavy.size > 0
-    # The fused pass needs the heavy step count divisible by 8 (the
-    # row-rotated output); SEG_BLOCK-padded heavy columns (big graphs)
-    # always are, 128-padded ones (tiny graphs) may not be.
-    from ..kernels.crossmat import SEG_BLOCK
-
-    fusable = has_heavy and dg.ell_heavy.shape[1] % SEG_BLOCK == 0
-
     pack16 = bool(dg.ell_pack16)
-
-    def tier_x(tall, k):
-        if pallas:
-            if pack16:
-                # The standalone tall kernel has no pack16 body; the
-                # splitn form with an absent heavy class is the same
-                # single-phase program.
-                d, u = masked_ell_splitn_depth(
-                    (tall,), jnp.zeros((0, 0), jnp.uint8), m,
-                    ks=(k,), pack16=True,
-                )[:2]
-                return d, u
-            return masked_ell_depth_tall(tall, m, k=k)
-        flat = unfold_ell_tall(tall, k)
-        if pack16:
-            flat = unpair_ell16(flat)
-        return masked_ell_depth_xla(flat, m)
-
-    def cat_mid(d2, u2, d3, u3):
-        # Fold tier-3 into the mid pair: exact-length concat in
-        # ell_order order (tier-2 columns first). Cheap device op —
-        # a few hundred KB at most.
-        nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
-        return (
-            jnp.concatenate([d2[:nm], d3[:nm2]]),
-            jnp.concatenate([u2[:nm], u3[:nm2]]),
-        )
-
-    d2 = u2 = dh = uh = None
-    if pallas and fusable:
-        # One fused Pallas pass over every class: separate calls
-        # serialize (measured 9.7 + 11.2 us alone vs 19.3 us
-        # back-to-back for the two-phase form at bench shape).
-        tiers = [dg.cross_ell]
-        ks = [dg.ell_k]
-        if has_mid:
-            tiers.append(dg.cross_ell2)
-            ks.append(dg.ell_k2)
-        if has_mid2:
-            tiers.append(dg.cross_ell3)
-            ks.append(dg.ell_k3)
-        outs = masked_ell_splitn_depth(
-            tuple(tiers), dg.ell_heavy, m, ks=tuple(ks),
-            joint=ELL_JOINT, pack16=pack16,
-        )
-        d1, u1 = outs[0], outs[1]
-        i = 2
-        if has_mid:
-            d2, u2 = outs[i], outs[i + 1]
-            i += 2
-        if has_mid2:
-            d3, u3 = outs[i], outs[i + 1]
-            i += 2
-            if has_mid:
-                d2, u2 = cat_mid(d2, u2, d3, u3)
-            else:
-                d2, u2 = d3, u3
-        dh, uh = outs[i], outs[i + 1]
-    else:
-        d1, u1 = tier_x(dg.cross_ell, dg.ell_k)
-        if has_mid:
-            d2, u2 = tier_x(dg.cross_ell2, dg.ell_k2)
-        if has_mid2:
-            d3, u3 = tier_x(dg.cross_ell3, dg.ell_k3)
-            if has_mid:
-                d2, u2 = cat_mid(d2, u2, d3, u3)
-            else:
-                d2, u2 = d3, u3
-        if has_heavy:
-            p_pad = dg.ell_heavy.shape[0] * 2
-            mp = jnp.zeros(p_pad, jnp.int32).at[: dg.num_paths].set(m)
-            cfn = masked_cross_depth if pallas else masked_cross_depth_xla
-            dh, uh = cfn(dg.ell_heavy, mp, nibble=True)
-    if has_heavy and dg.ell_heavy_res_col.size:
+    d1, u1, d2, u2 = _fold_mid(
+        dg,
+        [_ellscan.tier_depth(t, m, pack16=pack16) for t in _ell_tiers(dg)],
+    )
+    dh = uh = None
+    if dg.ell_heavy.size:
         mp = jnp.zeros(
             dg.ell_heavy.shape[0] * 2, jnp.int32
         ).at[: dg.num_paths].set(m)
-        fix = jnp.sum(
-            dg.ell_heavy_res * mp[:, None], axis=0, dtype=jnp.int32
-        )
-        # Overflow columns occupy the heavy block's PREFIX by ingest
-        # construction (device.py), so the fixup is a slice-add, not a
-        # scatter; sentinel-padded residual columns contribute zero.
-        k3 = dg.ell_heavy_res.shape[1]
-        dh = dh.at[:k3].add(fix)
+        dh, uh = masked_cross_depth_xla(dg.ell_heavy, mp, nibble=True)
+        if dg.ell_heavy_res_col.size:
+            fix = jnp.sum(
+                dg.ell_heavy_res * mp[:, None], axis=0, dtype=jnp.int32
+            )
+            # Overflow columns occupy the heavy block's PREFIX by
+            # ingest construction (device.py), so the fixup is a
+            # slice-add, not a scatter; sentinel-padded residual
+            # columns contribute zero.
+            dh = dh.at[: dg.ell_heavy_res.shape[1]].add(fix)
     return d1, u1, d2, u2, dh, uh
 
 
-@functools.partial(jax.jit, static_argnames=("pallas",))
+def _ell_class_sizes(dg: DeviceGraph):
+    """(tier-1, mid (tiers 2+3), heavy, empty) column counts."""
+    nl, nh = dg.ell_num_light, dg.ell_num_heavy
+    nm = dg.ell_num_mid + dg.ell_num_mid2
+    return nl, nm, nh, dg.num_segments - nl - nm - nh
+
+
+@jax.jit
 def seg_depth_with_uniq_ell_permuted(
-    dg: DeviceGraph, path_mask: jax.Array, pallas: bool = False
+    dg: DeviceGraph, path_mask: jax.Array
 ) -> Tuple[jax.Array, jax.Array]:
     """Masked (depth, uniq) in the index's own ``ell_order``
-    ([tier1, tier2, heavy, empty]) as single vectors — the parts op
-    plus one device concatenate (the empty tail is a constant zero
+    ([tier1, tier2, tier3, heavy, empty]) as single vectors — the parts
+    op plus one device concatenate (the empty tail is a constant zero
     block); prefer the parts form on hot paths."""
-    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_parts(
-        dg, path_mask, pallas=pallas
-    )
+    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_parts(dg, path_mask)
     n = dg.num_segments
     if d2 is None and dh is None and not dg.ell_order.shape[0]:
         return d1[:n], u1[:n]
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2  # mid part folds tiers 2+3
-    ne = n - nl - nm - nh
+    nl, nm, nh, ne = _ell_class_sizes(dg)
     zero = jnp.zeros(ne, jnp.int32)
     dparts = [d1[:nl]] + (
         [d2[:nm]] if d2 is not None else []
@@ -390,290 +201,121 @@ def seg_depth_with_uniq_ell_permuted(
     return jnp.concatenate(dparts), jnp.concatenate(uparts)
 
 
-def seg_depth_with_uniq_ell(
-    dg: DeviceGraph, path_mask: jax.Array, pallas: bool = False
-) -> Tuple[jax.Array, jax.Array]:
-    """Masked (depth, uniq) via the tiered split ELL index, in natural
-    segment order. Host-side composition + un-permutation (numpy over
-    the ingest-known ``ell_order``): production serving either consumes
-    the permuted device parts directly or renders host-side anyway, so
-    the device pays neither the concatenate nor a gather."""
-    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_parts(
-        dg, path_mask, pallas=pallas
-    )
+def _compose_natural(dg: DeviceGraph, parts, q: Optional[int] = None):
+    """Host composition of ELL part arrays into natural segment order:
+    slice each present class to its true size, append the empty
+    class's zeros, and invert ``ell_order``. ``parts`` is
+    ``(d1, u1, d2, u2, dh, uh)`` of shape (cols,) or (Q, cols)."""
+    d1, u1, d2, u2, dh, uh = parts
     n = dg.num_segments
+    nl, nm, nh, ne = _ell_class_sizes(dg)
+    lead = () if q is None else (q,)
+
+    def host(x, cols):
+        x = np.asarray(jax.device_get(x))[..., :cols]
+        return x if q is None else x[:q]
+
     if d2 is None and dh is None and not dg.ell_order.shape[0]:
-        return d1[:n], u1[:n]
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2  # mid part folds tiers 2+3
-    ne = n - nl - nm - nh
-    dparts = [np.asarray(jax.device_get(d1))[:nl]]
-    uparts = [np.asarray(jax.device_get(u1))[:nl]]
-    if d2 is not None:
-        dparts.append(np.asarray(jax.device_get(d2))[:nm])
-        uparts.append(np.asarray(jax.device_get(u2))[:nm])
-    if dh is not None:
-        dparts.append(np.asarray(jax.device_get(dh))[:nh])
-        uparts.append(np.asarray(jax.device_get(uh))[:nh])
-    dparts.append(np.zeros(ne, np.int32))
-    uparts.append(np.zeros(ne, np.int32))
-    d = np.concatenate(dparts)
-    u = np.concatenate(uparts)
+        return host(d1, n), host(u1, n)
+    dparts, uparts = [host(d1, nl)], [host(u1, nl)]
+    for d, u, cols in ((d2, u2, nm), (dh, uh, nh)):
+        if d is not None:
+            dparts.append(host(d, cols))
+            uparts.append(host(u, cols))
+    dparts.append(np.zeros(lead + (ne,), np.int32))
+    uparts.append(np.zeros(lead + (ne,), np.int32))
+    d = np.concatenate(dparts, axis=-1)
+    u = np.concatenate(uparts, axis=-1)
     if not dg.ell_order.shape[0]:
-        return jnp.asarray(d), jnp.asarray(u)
-    order = np.asarray(jax.device_get(dg.ell_order))
+        return d, u
     inv = np.empty(n, np.int64)
-    inv[order] = np.arange(n)
-    return jnp.asarray(d[inv]), jnp.asarray(u[inv])
+    inv[np.asarray(jax.device_get(dg.ell_order))] = np.arange(n)
+    return d[..., inv], u[..., inv]
 
 
-# Cost-model constants, in "equivalent streamed bytes" (time at the
-# measured 657 GB/s roofline), calibrated against the TPU probes at
-# bench shape (2^22 steps, 2^18 segments, 128 paths — probes/
-# RESULTS.txt): the fused scan measured 2115.9 us end-to-end with the
-# planned boundary and 128-row blocks; the run-level kernel 1499.2 us
-# over 2^19 runs of the same graph. Solving the two against a shared
-# planned-boundary term (~1000 equiv B per segment, 2 x 2048 gather
-# tiles at N = 2^18) gives ~270 equiv B/step for segscan and ~1380
-# equiv B/run for runscan — its exact int shift-add cumsums cost ~5x
-# segscan's MXU triangular matmuls per element, so runs only wins
-# when R < S/5. The fully-XLA pipeline (mask gather + cumsums +
-# boundary gathers, no Pallas) measured ~43 ms at bench shape in r1
-# (~6700 equiv B/step) — kept as the portable fallback's cost; it is
-# never chosen on TPU.
-_SCAN_EQUIV_BYTES = 270
-_RUNS_EQUIV_BYTES = 1380
-_BND_EQUIV_BYTES = 1000
-# Without an ingest boundary plan the scan/runs boundary stage is
-# XLA's ~94 M elem/s gather: scanx - scanb = ~2.4 ms at N = 2^18
-# (probes) == ~6100 equiv B per segment.
-_BND_XLA_EQUIV_BYTES = 6100
-_XLA_EQUIV_BYTES = 6700
-
-
-def _masked_impl_costs(dg: DeviceGraph) -> dict:
-    """Equivalent streamed bytes per masked-depth query, per resident
-    index — all shapes, so decidable at trace time."""
-
-    def bnd(planned: bool) -> int:
-        per = _BND_EQUIV_BYTES if planned else _BND_XLA_EQUIV_BYTES
-        return per * (dg.num_segments + 1)
-
-    costs = {
-        "scan": _SCAN_EQUIV_BYTES * dg.padded_steps
-        + bnd(dg.bnd_w_rows > 0),
-        "xla": _XLA_EQUIV_BYTES * dg.padded_steps,
-    }
-    if dg.run_path.shape[0]:
-        costs["runs"] = _RUNS_EQUIV_BYTES * dg.run_path.shape[0] + bnd(
-            dg.bnd2_w_rows > 0
-        )
-    if dg.cross_matrix.size:
-        costs["cross"] = dg.cross_matrix.size + 4 * dg.cross_res.size
-    if dg.cross_ell.size:
-        # Calibrated fixed + marginal decomposition, the SAME constants
-        # the ingest tier planner uses (kernels/ellscan.py, r4 ellcal1
-        # fit) so split and routing optimize one objective: per tier,
-        # a per-slot term (select-chain VPU work, scales with the mask
-        # word count) plus a per-column term (output writes) plus a
-        # per-phase fixed cost; the heavy nibble pass per packed byte.
-        from ..kernels.ellscan import (
-            C_COL_B,
-            C_HEAVY_PER_BYTE,
-            C_TIER_FIXED,
-            c_slot_a,
-        )
-
-        n_words = -(-max(dg.num_paths, 1) // 32)
-        a = c_slot_a(n_words)
-        cost_ell = 0.0
-        for tall, k in (
-            (dg.cross_ell, dg.ell_k),
-            (dg.cross_ell2, dg.ell_k2),
-            (dg.cross_ell3, dg.ell_k3),
-        ):
-            if tall.size and k:
-                # pack16 storage halves tall.size (two slots/word), so
-                # this charge tracks the halved DMA; the unchanged
-                # select work per LOGICAL slot makes it a mild
-                # underestimate (measured pack16 gain: ~28% of the
-                # tier phase, not 50%).
-                cost_ell += (
-                    C_TIER_FIXED + a * tall.size + C_COL_B * tall.size / k
-                )
-        if dg.ell_heavy.size:
-            cost_ell += (
-                C_TIER_FIXED
-                + C_HEAVY_PER_BYTE * dg.ell_heavy.size
-                + 8 * dg.ell_heavy_res.size
-            )
-        costs["ell"] = cost_ell
-    return costs
+def seg_depth_with_uniq_ell(
+    dg: DeviceGraph, path_mask: jax.Array
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Masked (depth, uniq) via the tiered split ELL index, in natural
+    segment order: the parts op plus host-side composition and
+    un-permutation (numpy over the ingest-known ``ell_order``) — every
+    consumer renders on the host, so the device pays neither the
+    concatenate nor a gather."""
+    return _compose_natural(dg, seg_depth_with_uniq_ell_parts(dg, path_mask))
 
 
 def _best_masked_impl(dg: DeviceGraph) -> str:
-    costs = _masked_impl_costs(dg)
-    return min(costs, key=costs.get)
+    """The resident index a masked query runs on: the first present of
+    the tiered ELL index, the crossing matrix, the run-level index and
+    the step list. Each streams fewer bytes per query than the next
+    wherever it is built (ELL ~4 B per run or 2 with pack16; the
+    matrix P/2 B per segment; runs ~12 B per run; steps ~20 B per
+    step)."""
+    if dg.cross_ell.size:
+        return "ell"
+    if dg.cross_matrix.size:
+        return "cross"
+    if dg.run_path.shape[0]:
+        return "runs"
+    return "xla"
 
 
-def _cross_beats_scan(dg: DeviceGraph) -> bool:
-    """Whether the dense crossing matrix is the cheapest masked-depth
-    index (kept for callers that predate the ELL index)."""
-    return _best_masked_impl(dg) == "cross"
-
-
-@functools.partial(jax.jit, static_argnames=("pallas",))
+@jax.jit
 def seg_depth_with_uniq_ell_batch_parts(
-    dg: DeviceGraph, path_masks: jax.Array, pallas: bool = False
+    dg: DeviceGraph, path_masks: jax.Array
 ):
     """Batched masked (depth, uniq) over the tiered split ELL index as
     per-class part arrays ``(d1, u1, d2, u2, dh, uh)`` of shape
-    (Q, class_cols) — the serving form (the batched analogue of
-    seg_depth_with_uniq_ell_parts). One fused Pallas pass answers the
-    whole batch: the slot DMA amortizes Q-fold and the heavy phase
-    becomes a real MXU matmul (kernels/ellscan.py
-    masked_ell_splitn_depth_batch; three-plus-tier plans route through
-    the per-tier split emission); off-TPU the XLA forms batch via
-    vmap/matmul. The heavy clip residual is already applied."""
-    from ..kernels.crossmat import batched_cross_depth
-    from ..kernels.ellscan import (
-        masked_ell_depth_xla,
-        masked_ell_splitn_depth_batch,
-        unfold_ell_tall,
-        unpair_ell16,
-    )
-
-    _check_ell_sub(dg)
+    (Q, class_cols) — the batched analogue of
+    seg_depth_with_uniq_ell_parts: the tier reductions vmap over the
+    masks, and the heavy class becomes one (Q, P) x (P, NH) matmul.
+    The heavy clip residual is already applied."""
     q = path_masks.shape[0]
     m = path_masks.astype(jnp.int32)[:, : dg.num_paths]
-    has_mid = dg.cross_ell2.size > 0
-    has_mid2 = dg.cross_ell3.size > 0
-    has_heavy = dg.ell_heavy.size > 0
-
-    def cat_mid_b(d2, u2, d3, u3):
-        # Fold tier-3 into the mid pair (exact lengths, ell_order
-        # order: tier-2 columns first), as the single-query form does.
-        nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
-        return (
-            jnp.concatenate([d2[:, :nm], d3[:, :nm2]], axis=1),
-            jnp.concatenate([u2[:, :nm], u3[:, :nm2]], axis=1),
-        )
-
-    if pallas:
-        from ..kernels.ellscan import masked_ell_splitn_depth_batch_split
-
-        tiers = [dg.cross_ell]
-        ks = [dg.ell_k]
-        if has_mid:
-            tiers.append(dg.cross_ell2)
-            ks.append(dg.ell_k2)
-        if has_mid2:
-            tiers.append(dg.cross_ell3)
-            ks.append(dg.ell_k3)
-        # Three and more tiers route through per-tier pallas_calls: the
-        # fused batch program's simultaneous per-tier output blocks
-        # blow Mosaic's scoped-VMEM ceiling at Q>=16 and its MLIR
-        # crashes the compile helper (r4); the launch overhead the
-        # split adds amortizes over the batch. One- and two-tier
-        # batches keep the proven fused form.
-        pack16_b = bool(dg.ell_pack16)
-        if len(tiers) <= 2:
-            outs = masked_ell_splitn_depth_batch(
-                tuple(tiers), dg.ell_heavy, m, ks=tuple(ks),
-                joint=ELL_BATCH_JOINT, pack16=pack16_b,
-            )
-        else:
-            outs = masked_ell_splitn_depth_batch_split(
-                tuple(tiers), dg.ell_heavy, m, ks=tuple(ks),
-                pack16=pack16_b,
-            )
-        d1, u1 = outs[0], outs[1]
-        i = 2
-        d2 = u2 = None
-        if has_mid:
-            d2, u2 = outs[i], outs[i + 1]
-            i += 2
-        if has_mid2:
-            d3, u3 = outs[i], outs[i + 1]
-            i += 2
-            if has_mid:
-                d2, u2 = cat_mid_b(d2, u2, d3, u3)
-            else:
-                d2, u2 = d3, u3
-        dh, uh = outs[i], outs[i + 1]
-    else:
-        def unfold(tall, k):
-            flat = unfold_ell_tall(tall, k)
-            return unpair_ell16(flat) if dg.ell_pack16 else flat
-
-        flat = unfold(dg.cross_ell, dg.ell_k)
-        d1, u1 = jax.vmap(masked_ell_depth_xla, in_axes=(None, 0))(
-            flat, m
-        )
-        d2 = u2 = dh = uh = None
-        if has_mid:
-            flat2 = unfold(dg.cross_ell2, dg.ell_k2)
-            d2, u2 = jax.vmap(
-                masked_ell_depth_xla, in_axes=(None, 0)
-            )(flat2, m)
-        if has_mid2:
-            flat3 = unfold(dg.cross_ell3, dg.ell_k3)
-            d3, u3 = jax.vmap(
-                masked_ell_depth_xla, in_axes=(None, 0)
-            )(flat3, m)
-            if has_mid:
-                d2, u2 = cat_mid_b(d2, u2, d3, u3)
-            else:
-                d2, u2 = d3, u3
-        if has_heavy:
-            p_pad = dg.ell_heavy.shape[0] * 2
-            mp = (
-                jnp.zeros((q, p_pad), jnp.int32)
-                .at[:, : dg.num_paths]
-                .set(m)
-            )
-            dh, uh = batched_cross_depth(dg.ell_heavy, mp, nibble=True)
-    if has_heavy and dg.ell_heavy_res_col.size:
-        p_pad = dg.ell_heavy.shape[0] * 2
+    pack16 = bool(dg.ell_pack16)
+    tier_b = jax.vmap(
+        functools.partial(_ellscan.tier_depth, pack16=pack16),
+        in_axes=(None, 0),
+    )
+    d1, u1, d2, u2 = _fold_mid(dg, [tier_b(t, m) for t in _ell_tiers(dg)])
+    dh = uh = None
+    if dg.ell_heavy.size:
         mp = (
-            jnp.zeros((q, p_pad), jnp.int32)
+            jnp.zeros((q, dg.ell_heavy.shape[0] * 2), jnp.int32)
             .at[:, : dg.num_paths]
             .set(m)
         )
-        fix = jnp.einsum(
-            "qp,pk->qk",
-            mp,
-            dg.ell_heavy_res,
-            preferred_element_type=jnp.int32,
-        )
-        k3 = dg.ell_heavy_res.shape[1]
-        dh = dh.at[:, :k3].add(fix)
+        dh, uh = batched_cross_depth(dg.ell_heavy, mp, nibble=True)
+        if dg.ell_heavy_res_col.size:
+            fix = jnp.einsum(
+                "qp,pk->qk",
+                mp,
+                dg.ell_heavy_res,
+                preferred_element_type=jnp.int32,
+            )
+            dh = dh.at[:, : dg.ell_heavy_res.shape[1]].add(fix)
     return d1, u1, d2, u2, dh, uh
 
 
-# Largest batch per fused kernel invocation: tier output blocks are
-# (Q*SUB, TALL_W) int32 per class — past ~32 queries they outgrow the
-# VMEM budget, so bigger batches chunk (throughput is already flat at
-# this size: the per-batch fixed cost is amortized ~32x). Aliases the
-# planner's nominal batch so tier plans amortize over the real
-# serving batch size.
+# Largest batch per device call: bigger batches chunk (the per-batch
+# fixed cost is already amortized ~32x at this size). Aliases the
+# planner's nominal batch so tier plans amortize over the real serving
+# batch size.
 ELL_BATCH_CHUNK = _ellscan.ELL_BATCH_Q
 
 
 def seg_depth_with_uniq_ell_batch(
-    dg: DeviceGraph, path_masks: jax.Array, pallas: bool = False
+    dg: DeviceGraph, path_masks: jax.Array
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Batched tiered-ELL queries in natural segment order: the parts
     op plus HOST-side composition/un-permutation (a device-side inverse
-    permutation would be an XLA gather over Q x N values — ~20 ms at
-    bench shape, dwarfing the kernel; production serving consumes the
-    permuted device parts directly, exactly as the single-query path
-    does)."""
+    permutation would be an extra gather over Q x N values, and every
+    consumer reads the results on the host anyway)."""
     q = path_masks.shape[0]
     if q > ELL_BATCH_CHUNK:
         halves = [
             seg_depth_with_uniq_ell_batch(
-                dg, path_masks[i : i + ELL_BATCH_CHUNK], pallas=pallas
+                dg, path_masks[i : i + ELL_BATCH_CHUNK]
             )
             for i in range(0, q, ELL_BATCH_CHUNK)
         ]
@@ -682,9 +324,8 @@ def seg_depth_with_uniq_ell_batch(
             np.concatenate([h[1] for h in halves])[:q],
         )
     # Bucket Q to a power of two (zero-mask rows pad; results slice
-    # back). Every distinct Q would otherwise compile a fresh Mosaic
-    # program — a full ~30 ms-latency compile round trip per new ragged
-    # remainder on the serving hot path. Buckets cap that at
+    # back): every distinct Q would otherwise compile a fresh program
+    # on the serving hot path. Buckets cap that at
     # log2(ELL_BATCH_CHUNK)+1 programs while keeping small-batch
     # latency near its own size's cost rather than a full chunk's.
     q_pad = 1 << (q - 1).bit_length()
@@ -697,36 +338,9 @@ def seg_depth_with_uniq_ell_batch(
                 ),
             ]
         )
-    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_batch_parts(
-        dg, path_masks, pallas=pallas
+    return _compose_natural(
+        dg, seg_depth_with_uniq_ell_batch_parts(dg, path_masks), q=q
     )
-    n = dg.num_segments
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2  # mid part folds tiers 2+3
-    if d2 is None and dh is None and not dg.ell_order.shape[0]:
-        return (
-            np.asarray(jax.device_get(d1))[:q, :n],
-            np.asarray(jax.device_get(u1))[:q, :n],
-        )
-    dparts = [np.asarray(jax.device_get(d1))[:q, :nl]]
-    uparts = [np.asarray(jax.device_get(u1))[:q, :nl]]
-    if d2 is not None:
-        dparts.append(np.asarray(jax.device_get(d2))[:q, :nm])
-        uparts.append(np.asarray(jax.device_get(u2))[:q, :nm])
-    if dh is not None:
-        dparts.append(np.asarray(jax.device_get(dh))[:q, :nh])
-        uparts.append(np.asarray(jax.device_get(uh))[:q, :nh])
-    ne = n - nl - nm - nh
-    dparts.append(np.zeros((q, ne), np.int32))
-    uparts.append(np.zeros((q, ne), np.int32))
-    d = np.concatenate(dparts, axis=1)
-    u = np.concatenate(uparts, axis=1)
-    if not dg.ell_order.shape[0]:
-        return d, u
-    order = np.asarray(jax.device_get(dg.ell_order))
-    inv = np.empty(n, np.int64)
-    inv[order] = np.arange(n)
-    return d[:, inv], u[:, inv]
 
 
 def seg_depth_with_uniq_batch(
@@ -736,63 +350,51 @@ def seg_depth_with_uniq_batch(
     returns (depth, uniq) of shape [Q, N] (host numpy on the ELL
     route, which composes on the host; device arrays otherwise).
 
-    Routed like the single query: the tiered split ELL index serves
-    batches through its fused batched kernel when it is the cheapest
-    resident index; then the crossing matrix (two MXU matmuls,
-    ``masks @ A`` — the read of A amortizes across all Q queries);
-    otherwise a vmap over the run-level kernel. This is the shape
+    Routed like the single query (``_best_masked_impl``): the batched
+    ELL reductions, then the crossing matrix (two matmuls,
+    ``masks @ A`` — the read of A amortizes across all Q queries), then
+    a vmap over the run-level or step-level pipeline. This is the shape
     production serving wants: one resident graph, a stream of subset
     queries.
     """
-    if dg.cross_ell.size and _best_masked_impl(dg) == "ell":
-        on_tpu = jax.default_backend() not in ("cpu",)
-        # Host numpy out: the ELL batch composes on the host anyway,
-        # and every consumer reads host-side — re-uploading Q x N
-        # results only to device_get them back would cost minutes
-        # through a degraded transfer link.
-        return seg_depth_with_uniq_ell_batch(
-            dg, path_masks, pallas=on_tpu
-        )
-    return _seg_depth_with_uniq_batch_jit(dg, path_masks)
+    impl = _best_masked_impl(dg)
+    if impl == "ell":
+        return seg_depth_with_uniq_ell_batch(dg, path_masks)
+    if impl == "cross":
+        return seg_depth_with_uniq_cross_batch(dg, path_masks)
+    return _vmapped(_MASKED_IMPLS[impl])(dg, path_masks)
+
+
+@functools.cache
+def _vmapped(single):
+    return jax.jit(jax.vmap(single, in_axes=(None, 0)))
 
 
 @jax.jit
-def _seg_depth_with_uniq_batch_jit(
+def seg_depth_with_uniq_cross_batch(
     dg: DeviceGraph, path_masks: jax.Array
 ) -> Tuple[jax.Array, jax.Array]:
-    if dg.cross_matrix.size:
-        from ..kernels.crossmat import (
-            batched_cross_depth,
-            batched_cross_depth_pallas,
-        )
-
-        p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
-        q = path_masks.shape[0]
-        m = (
-            jnp.zeros((q, p_pad), jnp.int32)
-            .at[:, : dg.num_paths]
-            .set(path_masks.astype(jnp.int32)[:, : dg.num_paths])
-        )
-        # On TPU the Pallas kernel unpacks tiles in VMEM; the XLA dots
-        # would first materialize a full bf16 copy of A in HBM.
-        fn = (
-            batched_cross_depth_pallas
-            if jax.default_backend() not in ("cpu",) and p_pad <= 65536
-            else batched_cross_depth
-        )
-        depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
-        if dg.cross_res_seg.size:
-            fix = jnp.einsum(
-                "qp,pk->qk",
-                m,
-                dg.cross_res,
-                preferred_element_type=jnp.int32,
-            )
-            depth = depth.at[:, dg.cross_res_seg].add(fix, mode="drop")
-        return depth[:, : dg.num_segments], uniq[:, : dg.num_segments]
-    return jax.vmap(seg_depth_with_uniq_runs, in_axes=(None, 0))(
-        dg, path_masks
+    """Batched masked (depth, uniq) via the crossing matrix: two
+    (Q, P) x (P, N) matmuls plus the residual sidecar fixup."""
+    p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
+    q = path_masks.shape[0]
+    m = (
+        jnp.zeros((q, p_pad), jnp.int32)
+        .at[:, : dg.num_paths]
+        .set(path_masks.astype(jnp.int32)[:, : dg.num_paths])
     )
+    depth, uniq = batched_cross_depth(
+        dg.cross_matrix, m, nibble=dg.cross_nibble
+    )
+    if dg.cross_res_seg.size:
+        fix = jnp.einsum(
+            "qp,pk->qk",
+            m,
+            dg.cross_res,
+            preferred_element_type=jnp.int32,
+        )
+        depth = depth.at[:, dg.cross_res_seg].add(fix, mode="drop")
+    return depth[:, : dg.num_segments], uniq[:, : dg.num_segments]
 
 
 @jax.jit
@@ -864,36 +466,22 @@ def run_seg_depth(
     dg: DeviceGraph,
     subset_paths: Optional[List[str]] = None,
 ) -> str:
-    """End-to-end segment depth query: device kernel + TSV rendering.
-
-    Subset queries use the fused Pallas kernel on TPU backends and the
-    portable XLA pipeline elsewhere.
-    """
+    """End-to-end segment depth query: device query + TSV rendering.
+    Subset queries run on the index ``_best_masked_impl`` picks."""
     if subset_paths is None:
         depth, uniq = seg_depth_with_uniq(dg)
     else:
         mask = jnp.asarray(path_mask_for(g, subset_paths))
-        on_tpu = jax.default_backend() not in ("cpu",)
-        r = dg.run_path.shape[0]
-        best = _best_masked_impl(dg)
-        if best == "ell":
-            depth, uniq = seg_depth_with_uniq_ell(dg, mask, pallas=on_tpu)
-        elif best == "cross":
-            depth, uniq = seg_depth_with_uniq_cross(dg, mask, pallas=on_tpu)
-        elif on_tpu and best == "runs":
-            # Heavy crossing duplication (R < S/5 at the measured
-            # constants): the run-level kernel touches far fewer
-            # elements than the step stream.
-            depth, uniq = seg_depth_with_uniq_runs_fused(dg, mask)
-        elif on_tpu:
-            depth, uniq = seg_depth_with_uniq_fused(
-                dg, mask, planned_boundary=dg.bnd_w_rows > 0
-            )
-        elif r:
-            depth, uniq = seg_depth_with_uniq_runs(dg, mask)
-        else:
-            depth, uniq = seg_depth_with_uniq_masked(dg, mask)
+        depth, uniq = _MASKED_IMPLS[_best_masked_impl(dg)](dg, mask)
     return seg_depth_table(g, np.asarray(depth), np.asarray(uniq))
+
+
+_MASKED_IMPLS = {
+    "ell": seg_depth_with_uniq_ell,
+    "cross": seg_depth_with_uniq_cross,
+    "runs": seg_depth_with_uniq_runs,
+    "xla": seg_depth_with_uniq_masked,
+}
 
 
 def run_seg_depth_batch(
@@ -903,8 +491,7 @@ def run_seg_depth_batch(
 ) -> str:
     """Many subset-depth queries in one device pass (the serving
     shape): one TSV table per subset, each preceded by ``##query i``.
-    Routed through the batched tiered-ELL kernel / crossing-matrix
-    matmul by the same cost model as single queries. No reference
+    Routed like single queries (``_best_masked_impl``). No reference
     equivalent (fgfa answers one query per invocation)."""
     if not subsets:
         return ""

@@ -138,7 +138,7 @@ def parse_gaf_file(filename: str, g: GraphArrays) -> GafReads:
 # (reference analogue: gaf.rs:73-103's mmap iterator / rayon stream).
 # Small windows are also FASTER: the vectorized parser's per-char
 # temporaries fit cache (measured 54.6 MB/s at 1 MB vs 4.6 MB/s at the
-# old 64 MB on a 2-core host; the sweep is in docs/benchmarks.md).
+# old 64 MB on a 2-core host).
 DEFAULT_GAF_WINDOW = 2 << 20
 
 

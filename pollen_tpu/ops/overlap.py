@@ -31,6 +31,8 @@ def _incidence(g: GraphArrays) -> np.ndarray:
 def _touch_matrix(inc: jax.Array) -> jax.Array:
     """bool[P, P]: do two (distinct) paths share any handle?"""
     m = inc.astype(jnp.bfloat16)
+    # Exact for the > 0 test: 0/1 operands, and an f32 sum of
+    # non-negative terms is 0 only when every term is.
     shared = jnp.dot(m, m.T, preferred_element_type=jnp.float32)
     touches = shared > 0
     return touches & ~jnp.eye(inc.shape[0], dtype=bool)

@@ -1,7 +1,7 @@
-"""Multi-chip execution: meshes, sharded graph tensors, collective
-reductions over ICI (reference analogue: none — the reference is a
-single-process system; this layer is the TPU-native scaling story
-described in SURVEY.md §5/§7)."""
+"""Multi-device execution: meshes, sharded graph tensors, collective
+reductions (reference analogue: none — the reference is a
+single-process system; this layer is the scaling story described in
+SURVEY.md §5/§7)."""
 
 from .sharded import (  # noqa: F401
     ShardedGraph,

@@ -4,8 +4,8 @@ Design (per BASELINE.json's north star): the (segment, path)-sorted step
 index is sharded into contiguous chunks over every device in a
 ``Mesh(hosts, chips)``; segment-indexed tables (N-sized boundaries) are
 replicated; each device computes a partial histogram over its chunk with
-the same scatter-free cumsum trick as the single-chip path; partials
-merge with ``psum`` riding ICI.
+the same scatter-free cumsum trick as the single-device path; partials
+merge with ``psum``.
 
 The subtle part is ``depth.uniq`` (distinct paths per segment): a
 (segment, path) group can straddle chunk boundaries, so "first masked
@@ -35,13 +35,14 @@ STEP_AXES = ("host", "chip")  # step chunks are sharded over both axes
 def make_mesh(
     devices=None, hosts: Optional[int] = None
 ) -> Mesh:
-    """A (host, chip) mesh over the given (or all) devices."""
+    """A (host, chip) mesh over the given (or all) devices: one row per
+    process (``jax.process_count()``) unless ``hosts`` says otherwise."""
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices)
     if hosts is None:
-        # Default: a single host row unless the device count factors.
-        hosts = 2 if n % 2 == 0 and n > 1 else 1
-    assert n % hosts == 0
+        hosts = jax.process_count()
+    if n % hosts:
+        raise ValueError(f"{n} devices do not split into {hosts} host rows")
     arr = np.array(devices).reshape(hosts, n // hosts)
     return Mesh(arr, STEP_AXES)
 
@@ -77,18 +78,13 @@ class ShardedGraph:
     chunk: int
 
 
-def shard_device_graph(
-    dg: DeviceGraph, mesh: Mesh, block: int = 1
-) -> ShardedGraph:
-    """Lay a DeviceGraph's sorted index out across a mesh.
-
-    ``block``: pad each device's chunk to a multiple of this (the fused
-    per-shard Pallas scan needs chunks divisible by its BLOCK)."""
+def shard_device_graph(dg: DeviceGraph, mesh: Mesh) -> ShardedGraph:
+    """Lay a DeviceGraph's sorted index out across a mesh."""
     n_dev = mesh.size
-    path_sorted = np.asarray(dg.step_path_sorted)  # already block-padded
+    path_sorted = np.asarray(dg.step_path_sorted)
     run_start = np.asarray(dg.run_start)
     s = path_sorted.shape[0]
-    chunk = -(-max(s, 1) // (n_dev * block)) * block
+    chunk = -(-max(s, 1) // n_dev)
     s_pad = chunk * n_dev
     pad = s_pad - s
     # Sentinel padding: fake path (mask 0), each pad step its own group.
@@ -263,99 +259,6 @@ def sharded_seg_depth_scatter_fn(mesh: Mesh):
     return query
 
 
-def sharded_seg_depth_fused_fn(mesh: Mesh, interpret: bool = False):
-    """Mesh-wide (depth, uniq) with the fused Pallas segmented scan
-    running per shard — the production sharded form of the scan-family
-    fallback (the only index once P and the ELL/crossing budgets are
-    all exceeded). Structure:
-
-    1. each device computes its tail-group masked count with one cheap
-       XLA reduction (no cumsum),
-    2. one tiny all-gather of (tail-group id, count) pairs gives every
-       device its head-group lookback carry,
-    3. the fused kernel (kernels/segscan.py) runs over the local chunk
-       with that carry as its open-group initializer — bit-select mask
-       lookup, triangular-matmul cumsums, first-flag prefix-max — so a
-       straddling group's first-selected flag fires on exactly one
-       device,
-    4. local boundary differences, merged with psum over ICI.
-
-    Requires chunks padded to the kernel block
-    (``shard_device_graph(dg, mesh, block=segscan.BLOCK)``).
-    ``interpret=True`` for CPU meshes (tests, dry runs).
-    """
-    from ..kernels.segscan import BLOCK, masked_depth_cumsums
-
-    @jax.jit
-    def query(sg: ShardedGraph, mask_ext: jax.Array):
-        def worker(path_chunk, run_start, seg_bounds, chunk_starts, mask):
-            idx = jax.lax.axis_index(STEP_AXES)
-            chunk_start = chunk_starts[idx]
-            c_size = path_chunk.shape[0]
-            assert c_size % BLOCK == 0, (
-                "shard with shard_device_graph(..., block=segscan.BLOCK)"
-            )
-            w = mask[path_chunk]
-            head_key = run_start[0]
-            tail_key = run_start[-1]
-            tail_count = jnp.sum(w * (run_start == tail_key))
-            keys = jax.lax.all_gather(
-                tail_key, STEP_AXES, tiled=False
-            ).reshape(-1)
-            counts = jax.lax.all_gather(
-                tail_count, STEP_AXES, tiled=False
-            ).reshape(-1)
-            my_index = chunk_start // c_size
-            from_left = jnp.arange(keys.shape[0]) < my_index
-            carry = jnp.sum(
-                jnp.where(from_left & (keys == head_key), counts, 0)
-            )
-            # Kernel inputs are local: left-started groups get negative
-            # start positions (never matching a local position).
-            local_rs = (run_start - chunk_start).astype(jnp.int32)
-            p_pad = -(-mask.shape[0] // 128) * 128
-            mask128 = (
-                jnp.zeros(p_pad, jnp.int32)
-                .at[: mask.shape[0]]
-                .set(mask.astype(jnp.int32))
-            )
-            csw, csf = masked_depth_cumsums(
-                path_chunk.astype(jnp.int32),
-                local_rs,
-                mask128,
-                interpret=interpret,
-                head_carry=carry,
-            )
-            padded_w = jnp.concatenate([jnp.zeros(1, csw.dtype), csw])
-            padded_f = jnp.concatenate([jnp.zeros(1, csf.dtype), csf])
-            lo = jnp.clip(seg_bounds[:-1] - chunk_start, 0, c_size)
-            hi = jnp.clip(seg_bounds[1:] - chunk_start, 0, c_size)
-            d = padded_w[hi] - padded_w[lo]
-            u = padded_f[hi] - padded_f[lo]
-            return (
-                jax.lax.psum(d, STEP_AXES),
-                jax.lax.psum(u, STEP_AXES),
-            )
-
-        return jax.shard_map(
-            worker,
-            mesh=mesh,
-            in_specs=(P(STEP_AXES), P(STEP_AXES), P(), P(), P()),
-            out_specs=(P(), P()),
-            # pallas_call outputs carry no varying-mesh-axes metadata;
-            # the collectives here are explicit, so skip vma checking.
-            check_vma=False,
-        )(
-            sg.step_path_sorted,
-            sg.run_start,
-            sg.seg_bounds,
-            sg.chunk_starts,
-            mask_ext,
-        )
-
-    return query
-
-
 def sharded_degree_fn(mesh: Mesh):
     """Mesh-wide degree: link-endpoint chunks sharded, boundary table
     replicated, partial histograms merged with psum."""
@@ -451,34 +354,19 @@ def sharded_cross_depth_fn(mesh: Mesh, nibble: bool = False):
     """Mesh-wide masked (depth, uniq) over the sharded crossing matrix.
 
     Tensor parallelism in its purest form: each device computes the
-    mat-vec for its own segment columns; outputs stay segment-sharded
-    and NO collective runs at all (the mask is replicated, the residual
-    fixup is range-filtered locally with dropped out-of-range scatters).
-    Scaling is linear by construction — ICI carries nothing.
+    masked column sum for its own segment columns; outputs stay
+    segment-sharded and NO collective runs at all (the mask is
+    replicated, the residual fixup is range-filtered locally with
+    dropped out-of-range scatters).
     """
-    from ..kernels.crossmat import fold_mask, unpack_cross
+    from ..kernels.crossmat import masked_cross_depth_xla
 
     @jax.jit
     def query(cross, res, res_seg, mask):
         def worker(a, res, res_seg, mask):
             idx = jax.lax.axis_index(STEP_AXES)
             width = a.shape[1]
-            # bf16 operands (exact: mask is 0/1, counts clip small)
-            # with f32 accumulation keep the dots on the MXU.
-            if nibble:
-                af = unpack_cross(a).astype(jnp.bfloat16)
-                m = fold_mask(mask).astype(jnp.bfloat16)
-            else:
-                af = a.astype(jnp.bfloat16)
-                m = mask.astype(jnp.bfloat16)
-            depth = jnp.dot(m, af, preferred_element_type=jnp.float32)
-            uniq = jnp.dot(
-                m,
-                jnp.minimum(af, jnp.bfloat16(1)),
-                preferred_element_type=jnp.float32,
-            )
-            depth = depth.astype(jnp.int32)
-            uniq = uniq.astype(jnp.int32)
+            depth, uniq = masked_cross_depth_xla(a, mask, nibble=nibble)
             # Residual remainders for my column range only. mode="drop"
             # only drops indices PAST the end — negative shifted
             # indices wrap around (numpy semantics) and would land
@@ -543,16 +431,14 @@ def shard_ell_inputs(dg: DeviceGraph, mesh: Mesh):
     returns None when the graph has no ELL index."""
     if dg.cross_ell.size == 0:
         return None
-    from ..kernels.ellscan import unfold_ell_tall, unpair_ell16
+    from ..kernels.ellscan import unpair_ell16
 
     n_dev = mesh.size
 
-    def _flat(tall, k):
-        # The resident layout is tall (sublane-folded); unfold to flat
-        # (K, N) slots so columns shard contiguously — and un-pair
-        # pack16 storage back to standard slots, so the sharded XLA
+    def _flat(tier, k):
+        # Un-pair pack16 storage back to standard slots, so the sharded
         # workers stay layout-agnostic.
-        f = unfold_ell_tall(np.asarray(tall), k)
+        f = np.asarray(tier)
         return unpair_ell16(f) if dg.ell_pack16 else f
 
     flat = _flat(dg.cross_ell, dg.ell_k)
@@ -607,19 +493,8 @@ def sharded_ell_depth_fn(
     replicated clip residual is range-filtered locally. Outputs stay
     segment-sharded, one (depth, uniq) pair per present class in
     ``ell_order`` order: (d1, u1[, d2, u2][, dh, uh])."""
-    from ..kernels.crossmat import fold_mask, unpack_cross
-    from ..kernels.ellscan import COUNT_BITS, COUNT_MAX
-
-    def _tier(e, mask):
-        pid = (e >> COUNT_BITS) & 0xFFFF  # zero-extend the path id
-        cnt = e & COUNT_MAX
-        m = jnp.zeros(1 << 16, jnp.int32).at[: mask.shape[0]].set(
-            mask.astype(jnp.int32)
-        )
-        bit = m[pid]
-        depth = jnp.sum(bit * cnt, axis=0)
-        uniq = jnp.sum(bit * (e != 0).astype(jnp.int32), axis=0)
-        return depth, uniq
+    from ..kernels.crossmat import masked_cross_depth_xla
+    from ..kernels.ellscan import masked_ell_depth_xla as _tier
 
     @jax.jit
     def query(*args):
@@ -637,21 +512,13 @@ def sharded_ell_depth_fn(
             if has_heavy:
                 h, res, res_col = wargs[i : i + 3]
                 idx = jax.lax.axis_index(STEP_AXES)
-                # Heavy nibble columns: bf16 dots, exact (counts <= 15).
                 p_pad = h.shape[0] * 2
                 mp = jnp.zeros(p_pad, jnp.int32).at[
                     : mask.shape[0]
                 ].set(mask.astype(jnp.int32))
-                af = unpack_cross(h).astype(jnp.bfloat16)
-                mf = fold_mask(mp).astype(jnp.bfloat16)
-                depth_h = jnp.dot(
-                    mf, af, preferred_element_type=jnp.float32
-                ).astype(jnp.int32)
-                uniq_h = jnp.dot(
-                    mf,
-                    jnp.minimum(af, jnp.bfloat16(1)),
-                    preferred_element_type=jnp.float32,
-                ).astype(jnp.int32)
+                depth_h, uniq_h = masked_cross_depth_xla(
+                    h, mp, nibble=True
+                )
                 if res_col.shape[0]:
                     fix = jnp.sum(
                         res * mp[:, None], axis=0, dtype=jnp.int32
@@ -697,26 +564,13 @@ def sharded_ell_depth_batch_fn(
     reduces its own tier slot columns for all Q queries at once and
     (when present) turns the heavy nibble columns into one
     (Q, P) x (P, local_NH) matmul — still zero collectives, outputs
-    segment-sharded per class with a leading Q axis. The multi-chip
-    form of production batch serving (single-chip: the fused
-    masked_ell_splitn_depth_batch kernel)."""
-    from ..kernels.crossmat import fold_mask, unpack_cross
-    from ..kernels.ellscan import COUNT_BITS, COUNT_MAX
+    segment-sharded per class with a leading Q axis. The multi-device
+    form of batch serving (single device:
+    ops/depth.seg_depth_with_uniq_ell_batch_parts)."""
+    from ..kernels.crossmat import batched_cross_depth
+    from ..kernels.ellscan import masked_ell_depth_xla
 
-    def _tier_b(e, masks):
-        pid = (e >> COUNT_BITS) & 0xFFFF
-        cnt = e & COUNT_MAX
-        m = (
-            jnp.zeros((masks.shape[0], 1 << 16), jnp.int32)
-            .at[:, : masks.shape[1]]
-            .set(masks.astype(jnp.int32))
-        )
-        bit = jnp.take(m, pid, axis=1)  # (Q, K, W)
-        depth = jnp.einsum("qkw,kw->qw", bit, cnt)
-        uniq = jnp.einsum(
-            "qkw,kw->qw", bit, (e != 0).astype(jnp.int32)
-        )
-        return depth, uniq
+    _tier_b = jax.vmap(masked_ell_depth_xla, in_axes=(None, 0))
 
     @jax.jit
     def query(*args):
@@ -741,16 +595,7 @@ def sharded_ell_depth_batch_fn(
                     .at[:, : masks.shape[1]]
                     .set(masks.astype(jnp.int32))
                 )
-                af = unpack_cross(h).astype(jnp.bfloat16)
-                mf = fold_mask(mp, axis=1).astype(jnp.bfloat16)
-                depth_h = jnp.dot(
-                    mf, af, preferred_element_type=jnp.float32
-                ).astype(jnp.int32)
-                uniq_h = jnp.dot(
-                    mf,
-                    jnp.minimum(af, jnp.bfloat16(1)),
-                    preferred_element_type=jnp.float32,
-                ).astype(jnp.int32)
+                depth_h, uniq_h = batched_cross_depth(h, mp, nibble=True)
                 if res_col.shape[0]:
                     fix = jnp.einsum(
                         "qp,pk->qk",
@@ -793,37 +638,27 @@ def compose_ell_parts_natural(
     has_heavy: bool,
     has_mid2: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Reassemble a sharded (or single-device) tiered-ELL query's
-    per-class part vectors into natural segment order on the host:
-    slice each present class to its true size, append the empty
-    class's zeros, and invert the ingest permutation ``ell_order``.
-    ``parts`` is the flat (d, u) interleaving the sharded query
-    returns: (d1, u1[, d2, u2][, d3, u3][, dh, uh])."""
-    n = dg.num_segments
-    counts = [dg.ell_num_light]
-    if has_mid:
-        counts.append(dg.ell_num_mid)
-    if has_mid2:
-        counts.append(dg.ell_num_mid2)
-    if has_heavy:
-        counts.append(dg.ell_num_heavy)
-    d_parts = [np.asarray(parts[2 * i])[:c] for i, c in enumerate(counts)]
-    u_parts = [
-        np.asarray(parts[2 * i + 1])[:c] for i, c in enumerate(counts)
+    """Reassemble a sharded tiered-ELL query's per-class part vectors
+    into natural segment order on the host (ops/depth's composition,
+    after folding tier 3 into the mid pair). ``parts`` is the flat
+    (d, u) interleaving the sharded query returns:
+    (d1, u1[, d2, u2][, d3, u3][, dh, uh])."""
+    from ..ops.depth import _compose_natural
+
+    pairs = [
+        (np.asarray(parts[i]), np.asarray(parts[i + 1]))
+        for i in range(0, len(parts), 2)
     ]
-    ne = n - sum(counts)
-    d_parts.append(np.zeros(ne, np.int64))
-    u_parts.append(np.zeros(ne, np.int64))
-    d = np.concatenate(d_parts)
-    u = np.concatenate(u_parts)
-    if not dg.ell_order.shape[0]:
-        return d[:n], u[:n]
-    order = np.asarray(dg.ell_order)
-    d_nat = np.empty(n, np.int64)
-    u_nat = np.empty(n, np.int64)
-    d_nat[order] = d
-    u_nat[order] = u
-    return d_nat, u_nat
+    (d1, u1), rest = pairs[0], pairs[1:]
+    sizes = [dg.ell_num_mid] * has_mid + [dg.ell_num_mid2] * has_mid2
+    mids, rest = rest[: len(sizes)], rest[len(sizes) :]
+    d2 = u2 = dh = uh = None
+    if mids:
+        d2 = np.concatenate([d[:c] for (d, _), c in zip(mids, sizes)])
+        u2 = np.concatenate([u[:c] for (_, u), c in zip(mids, sizes)])
+    if has_heavy:
+        dh, uh = rest[0]
+    return _compose_natural(dg, (d1, u1, d2, u2, dh, uh))
 
 
 def full_mask(num_paths: int) -> jax.Array:

@@ -77,9 +77,6 @@ class Env:
     def device(self, r: Resource):
         key = (r.kind, r.index)
         if key not in self._device_cache:
-            from ..device import auto_platform
-
-            auto_platform(self.graph(r).num_steps)
             # No flash op does masked subset-depth, so never build the
             # crossing-matrix / tiered-ELL indexes (measured: halves
             # the 8M-step ingest).

@@ -9,7 +9,6 @@ import pytest
 
 from bench import (
     _IMPL_FIELDS,
-    measure_call_overhead,
     project_for_impl,
     synth_device_graph,
 )
@@ -42,9 +41,8 @@ def test_host_ingest_matches_device(graphs):
 
 @pytest.mark.parametrize("impl", sorted(_IMPL_FIELDS))
 def test_projection_preserves_answers(graphs, impl):
-    from pollen_tpu.device import bounded_segment_sum, first_in_group_mask
     from pollen_tpu.ops.depth import (
-        seg_depth_with_uniq_cross,
+        _MASKED_IMPLS,
         seg_depth_with_uniq_ell_permuted,
         seg_depth_with_uniq_masked,
     )
@@ -58,57 +56,44 @@ def test_projection_preserves_answers(graphs, impl):
         assert isinstance(getattr(dg_proj, f), jax.Array)
     if impl == "ell":
         assert dg_proj.cross_matrix.size == 0
-        d, u = seg_depth_with_uniq_ell_permuted(dg_proj, mask, pallas=False)
-        d_ref, u_ref = seg_depth_with_uniq_ell_permuted(
-            dg_full, mask, pallas=False
-        )
-    elif impl == "cross":
-        assert dg_proj.cross_ell.size == 0
-        d, u = seg_depth_with_uniq_cross(dg_proj, mask, pallas=False)
-        d_ref, u_ref = seg_depth_with_uniq_cross(dg_full, mask, pallas=False)
-    else:  # scan/xla read the sorted index
-        ext = jnp.concatenate([mask, jnp.zeros(1, jnp.int32)])
-        w = ext[dg_proj.step_path_sorted]
-        d = bounded_segment_sum(w, dg_proj.seg_bounds)
-        u = bounded_segment_sum(
-            first_in_group_mask(w, dg_proj.run_start), dg_proj.seg_bounds
-        )
+        d, u = seg_depth_with_uniq_ell_permuted(dg_proj, mask)
+        d_ref, u_ref = seg_depth_with_uniq_ell_permuted(dg_full, mask)
+    else:
+        if impl == "cross":
+            assert dg_proj.cross_ell.size == 0
+        d, u = _MASKED_IMPLS[impl](dg_proj, mask)
         d_ref, u_ref = seg_depth_with_uniq_masked(dg_full, mask)
     np.testing.assert_array_equal(np.asarray(d), np.asarray(d_ref))
     np.testing.assert_array_equal(np.asarray(u), np.asarray(u_ref))
 
 
-def test_ingest_cache_roundtrip(tmp_path, monkeypatch):
-    """The disk ingest cache (bench retries skip synth + planning) must
-    reproduce the projected host graph exactly — arrays, meta ints, and
-    tuple statics."""
-    import dataclasses
-
+def test_time_calls_blocks_and_counts():
+    """time_calls returns the first call's result and time, then one
+    positive wall time per warm call, each ended by block_until_ready."""
     import bench
 
-    monkeypatch.setattr(bench, "_ingest_cache_dir", lambda: str(tmp_path))
-    shape = (2**12, 2**8, 8)
-    _, dg_full = synth_device_graph(*shape, device="host")
-    host = bench.project_host(dg_full, "ell")
-    bench.ingest_cache_store(host, "ell", shape)
-    got = bench.ingest_cache_load(*shape)
-    assert got is not None
-    impl, dg2 = got
-    assert impl == "ell"
-    for f in dataclasses.fields(host):
-        a, b = getattr(host, f.name), getattr(dg2, f.name)
-        if hasattr(a, "ndim"):
-            assert a.dtype == b.dtype, f.name
-            np.testing.assert_array_equal(a, b, err_msg=f.name)
-        else:
-            assert a == b, f.name
-    # A different shape must miss.
-    assert bench.ingest_cache_load(2**12, 2**8, 16) is None
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x + 1
+
+    out, first, times = bench.time_calls(fn, (jnp.ones(4),), reps=5)
+    assert len(times) == 5 and len(calls) == 6
+    assert first > 0 and all(t > 0 for t in times)
+    np.testing.assert_array_equal(np.asarray(out), 2 * np.ones(4))
 
 
-def test_measured_call_overhead_sane():
+def test_synth_graph_names_and_links():
+    """The synthetic arena names its paths p0..p{P-1}, and links=True
+    adds one link per distinct consecutive step pair within a path."""
     import bench
 
-    v = measure_call_overhead()
-    assert 1e-4 <= v <= 2.0
-    assert bench.CALL_OVERHEAD_S == v
+    g = bench.synth_graph(2**10, 2**6, 4, links=True)
+    assert g.path_names() == [b"p0", b"p1", b"p2", b"p3"]
+    steps = np.asarray(g.steps)
+    want = set()
+    for lo, hi in np.asarray(g.path_steps):
+        want |= set(zip(steps[lo : hi - 1].tolist(), steps[lo + 1 : hi].tolist()))
+    got = set(zip(np.asarray(g.link_from).tolist(), np.asarray(g.link_to).tolist()))
+    assert got == want and len(got) == g.link_from.size

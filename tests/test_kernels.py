@@ -1,17 +1,19 @@
-"""Pallas segmented-scan kernel vs the XLA reference pipeline
-(interpreter mode on CPU; the compiled path is exercised on TPU by
-bench.py and run_seg_depth)."""
+"""Masked-depth query forms vs brute force and dense NumPy references:
+the step-level pipeline, the run-level index, the crossing matrix and
+the tiered split ELL index (single and batched)."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pollen_tpu.device import build_device_graph
-from pollen_tpu.flatgfa import parse_gfa_file
-from pollen_tpu.kernels.segscan import (
-    depth_uniq_from_cumsums,
-    masked_depth_cumsums,
+from pollen_tpu.device import (
+    DeviceGraph,
+    boundary_values,
+    bounded_segment_sum,
+    build_device_graph,
+    first_in_group_mask,
 )
+from pollen_tpu.flatgfa import parse_gfa_file
 from pollen_tpu.ops.depth import seg_depth_with_uniq_masked
 
 
@@ -30,29 +32,39 @@ def _random_case(s, p, n, seed):
     return seg, path, run_start, bounds
 
 
+def _step_pipeline(path, run_start, bounds, mask):
+    """The masked step-level reductions seg_depth_with_uniq_masked runs
+    (mask gather, cumsums, boundary gathers), on raw arrays."""
+    w = jnp.asarray(mask)[jnp.asarray(path)]
+    depth = bounded_segment_sum(w, jnp.asarray(bounds))
+    first = first_in_group_mask(w, jnp.asarray(run_start))
+    return depth, bounded_segment_sum(first, jnp.asarray(bounds))
+
+
+def _brute_depth(g, mask):
+    """(depth, uniq) per segment straight from the arena's path spans:
+    a bincount over the steps of the selected paths, and over their
+    distinct (segment, path) pairs."""
+    segs = np.asarray(g.steps).astype(np.int64) >> 1
+    paths = g.step_path_ids().astype(np.int64)
+    sel = np.asarray(mask, bool)[paths]
+    n = g.num_segments
+    depth = np.bincount(segs[sel], minlength=n)
+    pairs = np.unique(segs[sel] * (g.num_paths + 1) + paths[sel])
+    uniq = np.bincount(pairs // (g.num_paths + 1), minlength=n)
+    return depth, uniq
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
-# p=60/200 ride the packed-word bit-select mask mode; p=2040 pads to
-# 2048 paths = exactly MAX_SELECT_WORDS (64) packed words, pinning the
-# deepest select-chain boundary; p=2300 pads to 2304 paths (72 words)
-# and exercises the one-hot matvec fallback.
 @pytest.mark.parametrize("p", [60, 200, 2040, 2300])
 def test_kernel_matches_bruteforce(seed, p):
-    from pollen_tpu.kernels.segscan import BLOCK
-
-    s, n = BLOCK, 37
+    s, n = 16384, 37
     seg, path, run_start, bounds = _random_case(s, p, n, seed)
-    p_pad = -(-(p + 1) // 128) * 128
     rng = np.random.default_rng(seed + 100)
-    mask = np.zeros(p_pad, np.int32)
+    mask = np.zeros(p + 1, np.int32)
     mask[:p] = rng.integers(0, 2, p)
 
-    csw, csf = masked_depth_cumsums(
-        jnp.asarray(path),
-        jnp.asarray(run_start),
-        jnp.asarray(mask),
-        interpret=True,
-    )
-    depth, uniq = depth_uniq_from_cumsums(csw, csf, jnp.asarray(bounds))
+    depth, uniq = _step_pipeline(path, run_start, bounds, mask)
 
     w = mask[path]
     for i in range(n):
@@ -62,54 +74,33 @@ def test_kernel_matches_bruteforce(seed, p):
 
 
 def test_kernel_group_spans_blocks():
-    """One (segment, path) group spanning multiple Pallas blocks."""
-    from pollen_tpu.kernels.segscan import BLOCK
-
-    s = 3 * BLOCK
+    """One (segment, path) group spanning the whole step list."""
+    s = 3 * 16384
     path = np.zeros(s, np.int32)
     run_start = np.zeros(s, np.int32)
     bounds = np.array([0, s], np.int32)
-    mask = np.ones(128, np.int32)
-    csw, csf = masked_depth_cumsums(
-        jnp.asarray(path),
-        jnp.asarray(run_start),
-        jnp.asarray(mask),
-        interpret=True,
-    )
-    depth, uniq = depth_uniq_from_cumsums(csw, csf, jnp.asarray(bounds))
+    mask = np.ones(2, np.int32)
+    depth, uniq = _step_pipeline(path, run_start, bounds, mask)
     assert int(depth[0]) == s
     assert int(uniq[0]) == 1
 
 
 def test_fused_path_matches_xla_on_fixture(graph_path):
-    from pollen_tpu.ops.depth import _extend_mask
-
+    """The step-level pipeline on a fixture graph equals a bincount
+    over the arena's raw path spans."""
     g = parse_gfa_file(str(graph_path))
     dg = build_device_graph(g)
     rng = np.random.default_rng(7)
     mask = rng.integers(0, 2, dg.num_paths).astype(bool)
-
-    mask_ext = np.asarray(_extend_mask(jnp.asarray(mask)))
-    p_pad = -(-mask_ext.shape[0] // 128) * 128
-    mask_padded = np.zeros(p_pad, np.int32)
-    mask_padded[: mask_ext.shape[0]] = mask_ext
-
-    csw, csf = masked_depth_cumsums(
-        dg.step_path_sorted,
-        dg.run_start,
-        jnp.asarray(mask_padded),
-        interpret=True,
-    )
-    d_f, u_f = depth_uniq_from_cumsums(csw, csf, dg.seg_bounds)
     d_x, u_x = seg_depth_with_uniq_masked(dg, jnp.asarray(mask))
-    np.testing.assert_array_equal(np.asarray(d_f), np.asarray(d_x))
-    np.testing.assert_array_equal(np.asarray(u_f), np.asarray(u_x))
+    d_b, u_b = _brute_depth(g, mask)
+    np.testing.assert_array_equal(np.asarray(d_x), d_b)
+    np.testing.assert_array_equal(np.asarray(u_x), u_b)
 
 
 def test_cross_matrix_matches_xla(graph_path):
-    """Crossing-matrix depth (XLA dots + Pallas interpret) vs the
+    """Crossing-matrix depth (masked column sums + clip sidecar) vs the
     masked-scan pipeline."""
-    from pollen_tpu.kernels.crossmat import masked_cross_depth
     from pollen_tpu.ops.depth import seg_depth_with_uniq_cross
 
     g = parse_gfa_file(str(graph_path))
@@ -122,27 +113,6 @@ def test_cross_matrix_matches_xla(graph_path):
         d_c, u_c = seg_depth_with_uniq_cross(dg, jnp.asarray(mask))
         np.testing.assert_array_equal(np.asarray(d_c), np.asarray(d_x))
         np.testing.assert_array_equal(np.asarray(u_c), np.asarray(u_x))
-
-        p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
-        m = np.zeros(p_pad, np.int32)
-        m[: dg.num_paths] = mask
-        d_p, u_p = masked_cross_depth(
-            dg.cross_matrix,
-            jnp.asarray(m),
-            nibble=dg.cross_nibble,
-            interpret=True,
-        )
-        if dg.cross_res_seg.size:
-            fix = jnp.sum(
-                dg.cross_res * jnp.asarray(m)[:, None], axis=0
-            ).astype(jnp.int32)
-            d_p = d_p.at[dg.cross_res_seg].add(fix, mode="drop")
-        np.testing.assert_array_equal(
-            np.asarray(d_p)[: dg.num_segments], np.asarray(d_x)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(u_p)[: dg.num_segments], np.asarray(u_x)
-        )
 
 
 def test_cross_matrix_overflow_fixup():
@@ -169,11 +139,14 @@ def test_cross_matrix_overflow_fixup():
 
 
 def test_ell_matches_xla(graph_path):
-    """Split ELL run depth (XLA fallback + Pallas interpret + permuted
-    layout) vs the masked-scan pipeline."""
+    """Split ELL run depth (natural and permuted layouts) vs the
+    masked-scan pipeline, and each stored tier (pack16-aware) vs the
+    unpaired 32-bit slot reduction."""
     from pollen_tpu.kernels.ellscan import (
         masked_ell_depth_xla,
         pack_mask_words,
+        tier_depth,
+        unpair_ell16,
     )
     from pollen_tpu.ops.depth import (
         seg_depth_with_uniq_ell,
@@ -205,28 +178,11 @@ def test_ell_matches_xla(graph_path):
         np.testing.assert_array_equal(d_nat, np.asarray(d_x))
         np.testing.assert_array_equal(u_nat, np.asarray(u_x))
 
-        # Pallas interpret kernel (tall resident layout) == XLA
-        # fallback on the unfolded flat slots — layout-aware: pack16
-        # storage un-pairs for XLA and runs the pack16 kernel body.
-        from pollen_tpu.kernels.ellscan import (
-            masked_ell_depth_tall,
-            masked_ell_splitn_depth,
-            unfold_ell_tall,
-            unpair_ell16,
-        )
-
         m32 = jnp.asarray(mask.astype(np.int32))
-        flat = unfold_ell_tall(dg.cross_ell, dg.ell_k)
-        if dg.ell_pack16:
-            flat = unpair_ell16(flat)
-            d_k, u_k = masked_ell_splitn_depth(
-                (dg.cross_ell,), jnp.zeros((0, 0), jnp.uint8), m32,
-                ks=(dg.ell_k,), interpret=True, pack16=True,
-            )[:2]
-        else:
-            d_k, u_k = masked_ell_depth_tall(
-                dg.cross_ell, m32, k=dg.ell_k, interpret=True
-            )
+        flat = (
+            unpair_ell16(dg.cross_ell) if dg.ell_pack16 else dg.cross_ell
+        )
+        d_k, u_k = tier_depth(dg.cross_ell, m32, pack16=bool(dg.ell_pack16))
         d_k2, u_k2 = masked_ell_depth_xla(flat, m32)
         np.testing.assert_array_equal(np.asarray(d_k), np.asarray(d_k2))
         np.testing.assert_array_equal(np.asarray(u_k), np.asarray(u_k2))
@@ -236,39 +192,39 @@ def test_ell_matches_xla(graph_path):
     np.testing.assert_array_equal(np.array(bits, bool), mask)
 
 
-def test_cross_rotated_output_blocks():
-    """Column counts whose tile count divides 8 use the rotated
-    (8, width) shared output block; results must match the XLA dots in
-    natural column order (both nibble and int8 layouts)."""
+@pytest.mark.parametrize("nibble", [True, False])
+def test_cross_xla_matches_dense_reference(nibble):
+    """masked_cross_depth_xla and batched_cross_depth equal a dense
+    NumPy masked column sum over the unpacked matrix."""
     from pollen_tpu.kernels.crossmat import (
-        masked_cross_depth,
+        batched_cross_depth,
         masked_cross_depth_xla,
     )
 
     rng = np.random.default_rng(53)
-    n_pad, p_pad = 1024, 128  # width falls to 128 -> 8 tiles: rotate
-    for nibble in (True, False):
-        if nibble:
-            a = rng.integers(0, 256, (p_pad // 2, n_pad)).astype(np.uint8)
-        else:
-            a = rng.integers(0, 100, (p_pad, n_pad)).astype(np.int8)
-        mask = rng.integers(0, 2, p_pad).astype(np.int32)
-        d_p, u_p = masked_cross_depth(
-            jnp.asarray(a), jnp.asarray(mask), nibble=nibble, interpret=True
+    n_pad, p_pad = 1024, 128
+    if nibble:
+        a = rng.integers(0, 256, (p_pad // 2, n_pad)).astype(np.uint8)
+        dense = np.zeros((p_pad, n_pad), np.int64)
+        dense[0::2] = a & 15
+        dense[1::2] = a >> 4
+    else:
+        a = rng.integers(0, 100, (p_pad, n_pad)).astype(np.int8)
+        dense = a.astype(np.int64)
+    masks = rng.integers(0, 2, (3, p_pad)).astype(np.int32)
+    d_b, u_b = batched_cross_depth(
+        jnp.asarray(a), jnp.asarray(masks), nibble=nibble
+    )
+    for q in range(3):
+        d, u = masked_cross_depth_xla(
+            jnp.asarray(a), jnp.asarray(masks[q]), nibble=nibble
         )
-        d_x, u_x = masked_cross_depth_xla(
-            jnp.asarray(a), jnp.asarray(mask), nibble=nibble
+        np.testing.assert_array_equal(np.asarray(d), masks[q] @ dense)
+        np.testing.assert_array_equal(np.asarray(u), masks[q] @ (dense > 0))
+        np.testing.assert_array_equal(np.asarray(d_b)[q], masks[q] @ dense)
+        np.testing.assert_array_equal(
+            np.asarray(u_b)[q], masks[q] @ (dense > 0)
         )
-        np.testing.assert_array_equal(np.asarray(d_p), np.asarray(d_x))
-        np.testing.assert_array_equal(np.asarray(u_p), np.asarray(u_x))
-        d_only = masked_cross_depth(
-            jnp.asarray(a),
-            jnp.asarray(mask),
-            nibble=nibble,
-            uniq=False,
-            interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(d_only), np.asarray(d_x))
 
 
 def test_plan_ell_tiers_properties():
@@ -317,171 +273,78 @@ def test_plan_ell_tiers_no_empty_tier1():
     assert not heavy.any()
 
 
-def test_ell_tall_pack_unfold_roundtrip():
-    """unfold_ell_tall inverts pack_ell_tall (modulo zero column
-    padding to the tall tile)."""
-    from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
-        pack_ell_tall,
-        unfold_ell_tall,
-    )
+def _random_tier(rng, k, n_cols, p, max_count):
+    """Random runs packed into int32[K, n_cols] ELL slots (at most k
+    runs per column)."""
+    from pollen_tpu.kernels.ellscan import pack_ell
 
-    rng = np.random.default_rng(67)
-    for k, n in ((1, 1000), (2, SUB * TALL_W), (4, 3 * SUB * TALL_W + 5)):
-        ell = rng.integers(0, 2**31 - 1, (k, n)).astype(np.int32)
-        tall = pack_ell_tall(ell)
-        flat = np.asarray(unfold_ell_tall(tall, k))
-        np.testing.assert_array_equal(flat[:, :n], ell)
-        assert not flat[:, n:].any()
-
-
-def test_ell_tall_layout_matches_flat():
-    """The tall (sublane-folded) ELL layout returns the same depth/uniq
-    as the flat layout, in natural column order."""
-    from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
-        masked_ell_depth_tall,
-        masked_ell_depth_xla,
-        pack_ell,
-        pack_mask_words,  # noqa: F401 (import check)
-    )
-
-    rng = np.random.default_rng(41)
-    for k, n_cols, p in ((2, SUB * TALL_W, 60), (4, 2 * SUB * TALL_W, 200)):
-        n_runs = 3 * n_cols // 2
-        run_col = rng.integers(0, n_cols, n_runs).astype(np.int64)
-        # At most k runs per column: take the first k occurrences.
-        order = np.argsort(run_col, kind="stable")
-        run_col = run_col[order]
-        slot = np.arange(n_runs) - np.searchsorted(
-            run_col, run_col, side="left"
-        )
-        keep = slot < k
-        run_col, slot = run_col[keep], slot[keep]
-        m_runs = run_col.size
-        run_path = rng.integers(0, p, m_runs).astype(np.int32)
-        run_count = rng.integers(1, 100, m_runs).astype(np.int32)
-        ell = pack_ell(run_path, run_count, run_col, slot, k, n_cols)
-
-        from pollen_tpu.kernels.ellscan import pack_ell_tall
-
-        tall = pack_ell_tall(ell)
-        assert tall.shape == (ell.shape[1] // (SUB * TALL_W) * k * SUB, TALL_W)
-        mask = rng.integers(0, 2, p).astype(np.int32)
-        d_t, u_t = masked_ell_depth_tall(
-            jnp.asarray(tall), jnp.asarray(mask), k=k, interpret=True
-        )
-        d_x, u_x = masked_ell_depth_xla(jnp.asarray(ell), jnp.asarray(mask))
-        np.testing.assert_array_equal(np.asarray(d_t), np.asarray(d_x))
-        np.testing.assert_array_equal(np.asarray(u_t), np.asarray(u_x))
-
-
-def test_ell_split_fused_kernel():
-    """The fused light+heavy split kernel (interpret mode) matches the
-    separate XLA pieces on both halves."""
-    from pollen_tpu.kernels.crossmat import masked_cross_depth_xla
-    from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
-        masked_ell_depth_xla,
-        masked_ell_split_depth,
-        pack_ell,
-        pack_ell_tall,
-    )
-
-    rng = np.random.default_rng(59)
-    k, nl, nh_pad, p = 2, SUB * TALL_W, 8192, 100
-    # Light half: random runs, at most k per column.
-    run_col = np.sort(rng.integers(0, nl, nl))
-    slot = np.arange(run_col.size) - np.searchsorted(
-        run_col, run_col, side="left"
-    )
+    run_col = np.sort(rng.integers(0, n_cols, 2 * n_cols))
+    slot = np.arange(run_col.size) - np.searchsorted(run_col, run_col)
     keep = slot < k
     run_col, slot = run_col[keep], slot[keep]
     run_path = rng.integers(0, p, run_col.size).astype(np.int32)
-    run_count = rng.integers(1, 1000, run_col.size).astype(np.int32)
-    ell = pack_ell(run_path, run_count, run_col, slot, k, nl)
-    tall = pack_ell_tall(ell)
-    # Heavy half: nibble-packed counts (two paths per byte).
-    p_pad = -(-p // 128) * 128
-    heavy = rng.integers(0, 256, (p_pad // 2, nh_pad)).astype(np.uint8)
+    run_count = rng.integers(1, max_count + 1, run_col.size).astype(np.int32)
+    return pack_ell(run_path, run_count, run_col, slot, k, n_cols)
 
-    mask = rng.integers(0, 2, p).astype(np.int32)
-    dl, ul, dh, uh = masked_ell_split_depth(
-        jnp.asarray(tall),
-        jnp.asarray(heavy),
-        jnp.asarray(mask),
-        k=k,
-        interpret=True,
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_ell_pair16_roundtrip(k):
+    """unpair_ell16 inverts pair_ell16 up to slot order: per column the
+    multiset of nonzero slots survives (odd K pads a zero half)."""
+    from pollen_tpu.kernels.ellscan import pair_ell16, unpair_ell16
+
+    rng = np.random.default_rng(67 + k)
+    ell = _random_tier(rng, k, 1000, 200, 255)
+    paired = pair_ell16(ell)
+    assert paired.shape == ((k + 1) // 2, 1000)
+    back = unpair_ell16(paired)
+    np.testing.assert_array_equal(
+        np.sort(back, axis=0)[-k:], np.sort(ell, axis=0)
     )
-    d_lx, u_lx = masked_ell_depth_xla(jnp.asarray(ell), jnp.asarray(mask))
-    mp = np.zeros(p_pad, np.int32)
-    mp[:p] = mask
-    d_hx, u_hx = masked_cross_depth_xla(
-        jnp.asarray(heavy), jnp.asarray(mp), nibble=True
+    assert not np.sort(back, axis=0)[:-k].any()
+
+
+def test_ell_split_fused_kernel():
+    """Every piece of the split query — tier slot reductions (32-bit
+    and pack16) and the heavy nibble column sums — equals the dense
+    reference."""
+    from pollen_tpu.kernels.crossmat import masked_cross_depth_xla
+    from pollen_tpu.kernels.ellscan import pair_ell16, tier_depth
+
+    t1, t2, hm, c1, c2, ch = _synth_ell_split(seed=59, p=100, k=2, k2=4)
+    rng = np.random.default_rng(59)
+    mask = rng.integers(0, 2, 100).astype(np.int32)
+    mref = np.zeros(128, np.int64)
+    mref[:100] = mask
+    for tier, cls in ((t1, c1), (t2, c2)):
+        for pack16 in (False, True):
+            if pack16 and (cls > 255).any():
+                continue
+            stored = pair_ell16(tier) if pack16 else tier
+            d, u = tier_depth(jnp.asarray(stored), jnp.asarray(mask),
+                              pack16=pack16)
+            np.testing.assert_array_equal(
+                np.asarray(d)[: cls.shape[1]], mref @ cls
+            )
+            np.testing.assert_array_equal(
+                np.asarray(u)[: cls.shape[1]], mref @ (cls > 0)
+            )
+    dh, uh = masked_cross_depth_xla(
+        jnp.asarray(hm), jnp.asarray(mref.astype(np.int32)), nibble=True
     )
-    np.testing.assert_array_equal(np.asarray(dl), np.asarray(d_lx))
-    np.testing.assert_array_equal(np.asarray(ul), np.asarray(u_lx))
-    np.testing.assert_array_equal(np.asarray(dh), np.asarray(d_hx))
-    np.testing.assert_array_equal(np.asarray(uh), np.asarray(u_hx))
-
-    # Three-phase variant: add a tier-2 slot block; all six parts exact.
-    from pollen_tpu.kernels.ellscan import masked_ell_split3_depth
-
-    k2, n2 = 4, SUB * TALL_W
-    col2 = np.sort(rng.integers(0, n2, 2 * n2))
-    slot2 = np.arange(col2.size) - np.searchsorted(col2, col2, "left")
-    keep2 = slot2 < k2
-    col2, slot2 = col2[keep2], slot2[keep2]
-    p2 = rng.integers(0, p, col2.size).astype(np.int32)
-    c2 = rng.integers(1, 500, col2.size).astype(np.int32)
-    ell2 = pack_ell(p2, c2, col2, slot2, k2, n2)
-    tall2 = pack_ell_tall(ell2)
-    d1, u1, d2, u2, dh, uh = masked_ell_split3_depth(
-        jnp.asarray(tall),
-        jnp.asarray(tall2),
-        jnp.asarray(heavy),
-        jnp.asarray(mask),
-        k=k,
-        k2=k2,
-        interpret=True,
+    np.testing.assert_array_equal(np.asarray(dh)[: ch.shape[1]], mref @ ch)
+    np.testing.assert_array_equal(
+        np.asarray(uh)[: ch.shape[1]], mref @ (ch > 0)
     )
-    d_2x, u_2x = masked_ell_depth_xla(jnp.asarray(ell2), jnp.asarray(mask))
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d_lx))
-    np.testing.assert_array_equal(np.asarray(u1), np.asarray(u_lx))
-    np.testing.assert_array_equal(np.asarray(d2), np.asarray(d_2x))
-    np.testing.assert_array_equal(np.asarray(u2), np.asarray(u_2x))
-    np.testing.assert_array_equal(np.asarray(dh), np.asarray(d_hx))
-    np.testing.assert_array_equal(np.asarray(uh), np.asarray(u_hx))
-
-    # Joint-grid emission: heavy steps ride the early grid steps
-    # alongside the tier phases; answers identical to the sequential
-    # form in both the 1-tier and 2-tier shapes.
-    from pollen_tpu.kernels.ellscan import masked_ell_splitn_depth
-
-    for tiers, ks in (
-        ((jnp.asarray(tall),), (k,)),
-        ((jnp.asarray(tall), jnp.asarray(tall2)), (k, k2)),
-    ):
-        outs = masked_ell_splitn_depth(
-            tiers, jnp.asarray(heavy), jnp.asarray(mask),
-            ks=ks, interpret=True, joint=True,
-        )
-        np.testing.assert_array_equal(np.asarray(outs[0]), np.asarray(d_lx))
-        np.testing.assert_array_equal(np.asarray(outs[1]), np.asarray(u_lx))
-        np.testing.assert_array_equal(np.asarray(outs[-2]), np.asarray(d_hx))
-        np.testing.assert_array_equal(np.asarray(outs[-1]), np.asarray(u_hx))
 
 
 def test_ell_tiered_split_end_to_end(monkeypatch):
     """A graph with many 1-run segments, a band of mid-popularity
     segments, and never-crossed segments makes the planner build a
     tier-2 class and an empty class; every query form stays exact.
-    (The calibrated per-column/fixed costs merge tiers at this CPU
-    fixture size, so they are zeroed — the point here is multi-tier
-    EXACTNESS, not the production plan.)"""
+    (The per-column/fixed costs merge tiers at this CPU fixture size,
+    so they are zeroed — the point here is multi-tier EXACTNESS, not
+    the production plan.)"""
     from pollen_tpu.kernels import ellscan
 
     monkeypatch.setattr(ellscan, "C_TIER_FIXED", 0.0)
@@ -493,9 +356,6 @@ def test_ell_tiered_split_end_to_end(monkeypatch):
         seg_depth_with_uniq_masked,
     )
 
-    # Sized so a tier-2 genuinely pays under the tall-padded cost
-    # model (a K2 tier must amortize its 32768-column tile: ~15k+
-    # mid-popularity segments).
     n_light, n_mid, n_empty, p = 30000, 20000, 5000, 30
     n_segs = n_light + n_mid + n_empty
     pairs = []  # (path, seg)
@@ -511,7 +371,6 @@ def test_ell_tiered_split_end_to_end(monkeypatch):
     bounds = np.concatenate(([0], np.cumsum(counts))).astype(np.uint32)
     from pollen_tpu.flatgfa import GraphArrays
 
-    seg_lens = np.ones(n_segs, np.uint32)
     seq_bounds = np.arange(n_segs + 1, dtype=np.uint32)
     g = GraphArrays(
         header=np.zeros(0, np.uint8),
@@ -617,119 +476,45 @@ def test_ell_heavy_segments_sidecar():
     assert not ell[:, :2].any()
 
 
-def test_boundary_gather_planned(graph_path):
-    """The windowed one-hot MXU boundary gather (interpret mode)
-    matches the XLA boundary stage on real graphs."""
-    from pollen_tpu.kernels.gatherb import (
-        gather_boundary,
-        plan_boundary,
-    )
-    from pollen_tpu.ops.depth import seg_depth_with_uniq_fused
+def test_boundary_values_matches_numpy(graph_path):
+    """The boundary gather (and boundary differences) over a fixture
+    graph's sorted-index bounds equal the NumPy exclusive-cumsum
+    lookup."""
+    from pollen_tpu.device import boundary_diff
 
     g = parse_gfa_file(str(graph_path))
     dg = build_device_graph(g)
-    assert dg.bnd_w_rows > 0
     bounds = np.asarray(dg.seg_bounds)
-    s_pad = dg.padded_steps
-    plan = plan_boundary(bounds, s_pad)
-
     rng = np.random.default_rng(31)
     csum_np = np.cumsum(
-        rng.integers(0, 3, s_pad).astype(np.int32)
+        rng.integers(0, 3, bounds[-1] + 5).astype(np.int32)
     ).astype(np.int32)
     want = np.concatenate(([0], csum_np))[bounds]
-    got = gather_boundary(
-        jnp.asarray(csum_np),
-        jnp.asarray(plan.row_start),
-        jnp.asarray(plan.loc),
-        plan.over_tiles,
-        jnp.asarray(plan.over_bounds),
-        w_rows=plan.w_rows,
-        n_bounds=bounds.shape[0],
-        interpret=True,
-    )
+    got = boundary_values(jnp.asarray(csum_np), jnp.asarray(bounds))
     np.testing.assert_array_equal(np.asarray(got), want)
-
-    # Planned boundary-diff over the ingest plan == the XLA boundary
-    # stage of the masked query (the scan kernel itself is TPU-only;
-    # its cumsums are reproduced here with plain XLA ops).
-    from pollen_tpu.device import first_in_group_mask
-    from pollen_tpu.kernels.gatherb import boundary_diff_planned
-
-    mask = rng.integers(0, 2, dg.num_paths).astype(bool)
-    w = jnp.concatenate(
-        [jnp.asarray(mask.astype(np.int32)), jnp.zeros(1, jnp.int32)]
-    )[dg.step_path_sorted]
-    csw = jnp.cumsum(w).astype(jnp.int32)
-    csf = jnp.cumsum(first_in_group_mask(w, dg.run_start)).astype(jnp.int32)
-    args = (
-        jnp.asarray(plan.row_start),
-        jnp.asarray(plan.loc),
-        plan.over_tiles,
-        jnp.asarray(plan.over_bounds),
-    )
-    d_p = boundary_diff_planned(
-        csw, *args, w_rows=plan.w_rows,
-        n_bounds=bounds.shape[0], interpret=True,
-    )
-    u_p = boundary_diff_planned(
-        csf, *args, w_rows=plan.w_rows,
-        n_bounds=bounds.shape[0], interpret=True,
-    )
-    d_x, u_x = seg_depth_with_uniq_masked(dg, jnp.asarray(mask))
-    np.testing.assert_array_equal(np.asarray(d_p), np.asarray(d_x))
-    np.testing.assert_array_equal(np.asarray(u_p), np.asarray(u_x))
+    diff = boundary_diff(jnp.asarray(csum_np), jnp.asarray(bounds))
+    np.testing.assert_array_equal(np.asarray(diff), np.diff(want))
 
 
-def test_boundary_gather_overflow_tiles():
-    """Tiles whose bound span overflows the window route through the
-    XLA fallback rows and still come back exact."""
-    from pollen_tpu.kernels.gatherb import (
-        MAX_WINDOW_ROWS,
-        gather_boundary,
-        plan_boundary,
+def test_boundary_values_edges():
+    """Bounds at 0 and at the very end, repeated bounds (empty ranges)
+    and an empty cumsum."""
+    csum = np.arange(1, 9, dtype=np.int32)  # inclusive cumsum of ones
+    bounds = np.array([0, 0, 3, 3, 8], np.int32)
+    got = boundary_values(jnp.asarray(csum), jnp.asarray(bounds))
+    np.testing.assert_array_equal(np.asarray(got), [0, 0, 3, 3, 8])
+    empty = boundary_values(
+        jnp.zeros(0, jnp.int32), jnp.zeros(3, jnp.int32)
     )
-
-    rng = np.random.default_rng(5)
-    s_pad = 1 << 17  # 1024 rows
-    # Mostly tiny segments (they pull the window percentile down), one
-    # enormous one: its tile spans more than two window blocks.
-    bounds = np.concatenate(
-        [
-            np.arange(0, 2000, dtype=np.int32),
-            np.array([s_pad - 130], np.int32),  # ~129k-wide range
-            np.arange(s_pad - 128, s_pad + 1, dtype=np.int32),
-        ]
-    )
-    bounds = np.unique(bounds)
-    plan = plan_boundary(bounds, s_pad)
-    assert plan.w_rows <= MAX_WINDOW_ROWS
-    assert len(plan.over_tiles) >= 1
-    csum_np = np.cumsum(rng.integers(0, 3, s_pad)).astype(np.int32)
-    want = np.concatenate(([0], csum_np))[bounds]
-    got = gather_boundary(
-        jnp.asarray(csum_np),
-        jnp.asarray(plan.row_start),
-        jnp.asarray(plan.loc),
-        plan.over_tiles,
-        jnp.asarray(plan.over_bounds),
-        w_rows=plan.w_rows,
-        n_bounds=bounds.shape[0],
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(got), want)
+    np.testing.assert_array_equal(np.asarray(empty), [0, 0, 0])
 
 
 def test_ell_high_path_ids():
-    """Path ids >= 2**15 set the packed word's sign bit; the kernels
-    must zero-extend (``(v >> 16) & 0xFFFF``), not sign-extend
-    (regression: sign-extension made the word select fall through to
-    the last mask word and return silently wrong depth/uniq)."""
-    from pollen_tpu.kernels.ellscan import (
-        build_ell,
-        masked_ell_depth,
-        masked_ell_depth_xla,
-    )
+    """Path ids >= 2**15 set the packed word's sign bit; the slot
+    reductions must zero-extend (``(v >> 16) & 0xFFFF``), not
+    sign-extend (regression: sign-extension returned silently wrong
+    depth/uniq)."""
+    from pollen_tpu.kernels.ellscan import build_ell, masked_ell_depth_xla
 
     paths = np.array([5, 32768, 40000, 65535], np.int32)
     counts = np.array([3, 7, 2, 1], np.int32)
@@ -744,13 +529,9 @@ def test_ell_high_path_ids():
         for p, c, s in zip(paths, counts, segs):
             want_d[s] += mask[p] * c
             want_u[s] += mask[p]
-        for fn in (
-            lambda e, m: masked_ell_depth(e, m, interpret=True),
-            masked_ell_depth_xla,
-        ):
-            d, u = fn(ell, jnp.asarray(mask))
-            np.testing.assert_array_equal(np.asarray(d)[:128], want_d)
-            np.testing.assert_array_equal(np.asarray(u)[:128], want_u)
+        d, u = masked_ell_depth_xla(jnp.asarray(ell), jnp.asarray(mask))
+        np.testing.assert_array_equal(np.asarray(d)[:128], want_d)
+        np.testing.assert_array_equal(np.asarray(u)[:128], want_u)
 
 
 def test_cross_matrix_batch(graph_path):
@@ -771,10 +552,11 @@ def test_cross_matrix_batch(graph_path):
 
 
 def test_cross_matrix_batch_pallas(graph_path):
-    """The Q-mask Pallas kernel (interpret mode) vs the XLA dots."""
+    """The Q-mask crossing-matrix matmul equals Q single masked column
+    sums on a fixture graph's matrix."""
     from pollen_tpu.kernels.crossmat import (
         batched_cross_depth,
-        batched_cross_depth_pallas,
+        masked_cross_depth_xla,
     )
 
     g = parse_gfa_file(str(graph_path))
@@ -783,60 +565,48 @@ def test_cross_matrix_batch_pallas(graph_path):
     rng = np.random.default_rng(23)
     masks = np.zeros((5, p_pad), np.int32)
     masks[:, : dg.num_paths] = rng.integers(0, 2, (5, dg.num_paths))
-    d_x, u_x = batched_cross_depth(
+    d_b, u_b = batched_cross_depth(
         dg.cross_matrix, jnp.asarray(masks), nibble=dg.cross_nibble
     )
-    d_p, u_p = batched_cross_depth_pallas(
-        dg.cross_matrix,
-        jnp.asarray(masks),
-        nibble=dg.cross_nibble,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(d_p), np.asarray(d_x))
-    np.testing.assert_array_equal(np.asarray(u_p), np.asarray(u_x))
+    for q in range(5):
+        d_1, u_1 = masked_cross_depth_xla(
+            dg.cross_matrix, jnp.asarray(masks[q]), nibble=dg.cross_nibble
+        )
+        np.testing.assert_array_equal(np.asarray(d_b)[q], np.asarray(d_1))
+        np.testing.assert_array_equal(np.asarray(u_b)[q], np.asarray(u_1))
 
 
 def test_run_level_kernel_matches_xla(graph_path):
-    """runscan (interpret mode) vs the XLA run-level pipeline."""
-    from pollen_tpu.kernels.runscan import masked_run_cumsums
-    from pollen_tpu.ops.depth import (
-        _extend_mask,
-        seg_depth_with_uniq_runs,
-    )
+    """The run-level query vs a brute-force sum over the run arrays
+    and vs the step-level pipeline."""
+    from pollen_tpu.ops.depth import seg_depth_with_uniq_runs
 
     g = parse_gfa_file(str(graph_path))
     dg = build_device_graph(g)
+    run_path = np.asarray(dg.run_path)
+    run_count = np.asarray(dg.run_count)
+    b = np.asarray(dg.run_seg_bounds)
     rng = np.random.default_rng(11)
     for _ in range(2):
         mask = rng.integers(0, 2, dg.num_paths).astype(bool)
-        mask_ext = np.asarray(_extend_mask(jnp.asarray(mask)))
-        p_pad = -(-mask_ext.shape[0] // 128) * 128
-        mask_padded = np.zeros(p_pad, np.int32)
-        mask_padded[: mask_ext.shape[0]] = mask_ext
-
-        cswc, csw = masked_run_cumsums(
-            dg.run_path, dg.run_count, jnp.asarray(mask_padded),
-            interpret=True,
+        w = mask[run_path].astype(np.int64)
+        depth_b = np.array(
+            [(w * run_count)[b[i] : b[i + 1]].sum() for i in range(b.size - 1)]
         )
-        pad_wc = np.concatenate([[0], np.asarray(cswc)])
-        pad_w = np.concatenate([[0], np.asarray(csw)])
-        b = np.asarray(dg.run_seg_bounds)
-        depth_f = pad_wc[b[1:]] - pad_wc[b[:-1]]
-        uniq_f = pad_w[b[1:]] - pad_w[b[:-1]]
-
-        d_x, u_x = seg_depth_with_uniq_runs(dg, jnp.asarray(mask))
-        np.testing.assert_array_equal(depth_f, np.asarray(d_x))
-        np.testing.assert_array_equal(uniq_f, np.asarray(u_x))
+        uniq_b = np.array([w[b[i] : b[i + 1]].sum() for i in range(b.size - 1)])
+        d_r, u_r = seg_depth_with_uniq_runs(dg, jnp.asarray(mask))
+        d_x, u_x = seg_depth_with_uniq_masked(dg, jnp.asarray(mask))
+        np.testing.assert_array_equal(np.asarray(d_r), depth_b)
+        np.testing.assert_array_equal(np.asarray(u_r), uniq_b)
+        np.testing.assert_array_equal(np.asarray(d_r), np.asarray(d_x))
+        np.testing.assert_array_equal(np.asarray(u_r), np.asarray(u_x))
 
 
 def _synth_ell_split(seed=0, p=48, nl=300, nm=90, nh=40, k=2, k2=4):
-    """Synthetic tiered split arrays (tall tiers + heavy nibble matrix)
-    plus a dense reference crossing count matrix."""
+    """Synthetic tiered split arrays (flat tiers + heavy nibble matrix)
+    plus dense reference crossing count matrices."""
     from pollen_tpu.kernels.crossmat import CLIP_NIBBLE
-    from pollen_tpu.kernels.ellscan import (
-        pack_ell,
-        pack_ell_tall,
-    )
+    from pollen_tpu.kernels.ellscan import pack_ell
 
     rng = np.random.default_rng(seed)
     p_pad = 128
@@ -853,7 +623,7 @@ def _synth_ell_split(seed=0, p=48, nl=300, nm=90, nh=40, k=2, k2=4):
     c2 = make_counts(nm, k2, 9)
     ch = make_counts(nh, min(p, 30), 12)  # counts <= CLIP_NIBBLE
 
-    def to_tall(c, kk):
+    def to_flat(c, kk):
         pathc, colc = np.nonzero(c.T)[1], np.nonzero(c.T)[0]
         order = np.argsort(colc, kind="stable")
         pathc, colc = pathc[order], colc[order]
@@ -862,12 +632,10 @@ def _synth_ell_split(seed=0, p=48, nl=300, nm=90, nh=40, k=2, k2=4):
         for j in range(c.shape[1]):
             idx = np.flatnonzero(colc == j)
             slot[idx] = np.arange(idx.size)
-        return pack_ell_tall(
-            pack_ell(pathc, cnt, colc, slot, kk, c.shape[1])
-        )
+        return pack_ell(pathc, cnt, colc, slot, kk, c.shape[1])
 
-    t1 = to_tall(c1, k)
-    t2 = to_tall(c2, k2)
+    t1 = to_flat(c1, k)
+    t2 = to_flat(c2, k2)
     hm = np.zeros((p_pad // 2, -(-nh // 128) * 128), np.uint8)
     hp, hc = np.nonzero(ch)
     vals = np.minimum(ch[hp, hc], CLIP_NIBBLE).astype(np.uint8)
@@ -877,59 +645,35 @@ def _synth_ell_split(seed=0, p=48, nl=300, nm=90, nh=40, k=2, k2=4):
     return t1, t2, hm, c1, c2, np.minimum(ch, CLIP_NIBBLE)
 
 
-@pytest.mark.parametrize("q", [1, 5, 8])
-def test_ell_batch_kernel_matches_reference(q):
-    """The fused batched split kernel (interpret mode) equals the dense
-    per-query reference on all three classes, including a ragged Q."""
-    from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
-        masked_ell_split3_depth_batch,
+def _split_graph(p, tiers, heavy, ks):
+    """A DeviceGraph holding only a split ELL index (``tiers`` flat,
+    ``heavy`` nibble-packed): enough for the ELL query forms."""
+    e32 = np.zeros(0, np.int32)
+    stored = list(tiers) + [np.zeros((0, 0), np.int32)] * (3 - len(tiers))
+    cols = [t.shape[1] for t in tiers] + [0] * (3 - len(tiers))
+    return DeviceGraph(
+        steps=np.zeros(0, np.uint32), step_path=e32, path_bounds=e32,
+        seg_len=e32, link_from=np.zeros(0, np.uint32),
+        link_to=np.zeros(0, np.uint32), perm=e32, step_path_sorted=e32,
+        seg_bounds=e32, run_start=e32, run_path=e32, run_count=e32,
+        run_seg_bounds=e32, link_seg_bounds=e32,
+        cross_matrix=np.zeros((0, 0), np.int8),
+        cross_res=np.zeros((0, 0), np.int32), cross_res_seg=e32,
+        cross_ell=stored[0], cross_ell2=stored[1], cross_ell3=stored[2],
+        ell_order=e32, ell_heavy=heavy,
+        ell_heavy_res=np.zeros((0, 0), np.int32), ell_heavy_res_col=e32,
+        num_segments=sum(cols) + heavy.shape[1], num_paths=p,
+        ell_num_light=cols[0], ell_num_mid=cols[1], ell_num_mid2=cols[2],
+        ell_num_heavy=heavy.shape[1],
+        ell_k=ks[0], ell_k2=(list(ks) + [0, 0])[1],
+        ell_k3=(list(ks) + [0, 0])[2],
     )
 
-    k, k2, p = 2, 4, 48
-    t1, t2, hm, c1, c2, ch = _synth_ell_split(seed=3, p=p, k=k, k2=k2)
-    rng = np.random.default_rng(9)
-    masks = rng.integers(0, 2, (q, p)).astype(np.int32)
 
-    d1, u1, d2, u2, dh, uh = masked_ell_split3_depth_batch(
-        jnp.asarray(t1),
-        jnp.asarray(t2),
-        jnp.asarray(hm),
-        jnp.asarray(masks),
-        k=k,
-        k2=k2,
-        interpret=True,
-    )
-    mref = np.zeros((q, 128), np.int64)
-    mref[:, :p] = masks
-    for cls, (d, u) in ((c1, (d1, u1)), (c2, (d2, u2)), (ch, (dh, uh))):
-        cols = cls.shape[1]
-        want_d = mref @ cls
-        want_u = mref @ (cls > 0)
-        np.testing.assert_array_equal(
-            np.asarray(d)[:, :cols], want_d
-        )
-        np.testing.assert_array_equal(
-            np.asarray(u)[:, :cols], want_u
-        )
-
-    # Joint-grid batch emission equals the sequential form.
-    from pollen_tpu.kernels.ellscan import masked_ell_splitn_depth_batch
-
-    outs = masked_ell_splitn_depth_batch(
-        (jnp.asarray(t1), jnp.asarray(t2)),
-        jnp.asarray(hm),
-        jnp.asarray(masks),
-        ks=(k, k2),
-        interpret=True,
-        joint=True,
-    )
-    for cls, d, u in (
-        (c1, outs[0], outs[1]),
-        (c2, outs[2], outs[3]),
-        (ch, outs[4], outs[5]),
-    ):
+def _check_batch_parts(outs, classes, masks):
+    mref = np.zeros((masks.shape[0], 128), np.int64)
+    mref[:, : masks.shape[1]] = masks
+    for cls, (d, u) in zip(classes, zip(outs[0::2], outs[1::2])):
         cols = cls.shape[1]
         np.testing.assert_array_equal(np.asarray(d)[:, :cols], mref @ cls)
         np.testing.assert_array_equal(
@@ -937,193 +681,135 @@ def test_ell_batch_kernel_matches_reference(q):
         )
 
 
+@pytest.mark.parametrize("q", [1, 5, 8])
+def test_ell_batch_kernel_matches_reference(q):
+    """The batched split query (tier reductions vmapped over the
+    masks, heavy class as one matmul) equals the dense per-query
+    reference on all three classes, including a ragged Q."""
+    from pollen_tpu.ops.depth import seg_depth_with_uniq_ell_batch_parts
+
+    k, k2, p = 2, 4, 48
+    t1, t2, hm, c1, c2, ch = _synth_ell_split(seed=3, p=p, k=k, k2=k2)
+    dg = _split_graph(p, (t1, t2), hm, (k, k2))
+    rng = np.random.default_rng(9)
+    masks = rng.integers(0, 2, (q, p)).astype(np.int32)
+    outs = seg_depth_with_uniq_ell_batch_parts(dg, jnp.asarray(masks))
+    _check_batch_parts(outs, (c1, c2, ch), masks)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_ell_pack16_matches_unpacked(k):
     """The 16-bit paired slot layout (two path<<8|count halves per
     int32 word; pack16=True) answers identically to the standard
-    32-bit layout, for odd and even K (odd K pads a zero half)."""
-    from pollen_tpu.kernels.crossmat import masked_cross_depth_xla
+    32-bit layout, for odd and even K (odd K pads a zero half), single
+    and vmapped over a batch of masks."""
+    import jax
+
     from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
         masked_ell_depth_xla,
-        masked_ell_splitn_depth,
-        pack_ell,
-        pack_ell_tall,
         pair_ell16,
+        tier_depth,
     )
 
     rng = np.random.default_rng(31)
-    nl, p = SUB * TALL_W, 100  # paths < 256, counts <= 255
-    run_col = np.sort(rng.integers(0, nl, 2 * nl))
-    slot = np.arange(run_col.size) - np.searchsorted(run_col, run_col)
-    keep = slot < k
-    run_col, slot = run_col[keep], slot[keep]
-    run_path = rng.integers(0, p, run_col.size).astype(np.int32)
-    run_count = rng.integers(1, 256, run_col.size).astype(np.int32)
-    ell = pack_ell(run_path, run_count, run_col, slot, k, nl)
-    tall16 = pack_ell_tall(pair_ell16(ell))
-    k16 = (k + 1) // 2
-
-    p_pad = 128
-    heavy = rng.integers(0, 256, (p_pad // 2, 8192)).astype(np.uint8)
+    p = 100  # paths < 256, counts <= 255
+    ell = _random_tier(rng, k, 4096, p, 255)
+    ell16 = pair_ell16(ell)
     mask = rng.integers(0, 2, p).astype(np.int32)
     d_x, u_x = masked_ell_depth_xla(jnp.asarray(ell), jnp.asarray(mask))
-    mp = np.zeros(p_pad, np.int32)
-    mp[:p] = mask
-    d_hx, u_hx = masked_cross_depth_xla(
-        jnp.asarray(heavy), jnp.asarray(mp), nibble=True
-    )
-    for joint in (False, True):
-        d, u, dh, uh = masked_ell_splitn_depth(
-            (jnp.asarray(tall16),),
-            jnp.asarray(heavy),
-            jnp.asarray(mask),
-            ks=(k16,),
-            interpret=True,
-            joint=joint,
-            pack16=True,
-        )
-        np.testing.assert_array_equal(np.asarray(d), np.asarray(d_x))
-        np.testing.assert_array_equal(np.asarray(u), np.asarray(u_x))
-        np.testing.assert_array_equal(np.asarray(dh), np.asarray(d_hx))
-        np.testing.assert_array_equal(np.asarray(uh), np.asarray(u_hx))
+    d, u = tier_depth(jnp.asarray(ell16), jnp.asarray(mask), pack16=True)
+    np.testing.assert_array_equal(np.asarray(d), np.asarray(d_x))
+    np.testing.assert_array_equal(np.asarray(u), np.asarray(u_x))
 
-    # The BATCHED kernel's pack16 branch too: row 0 of the batch must
-    # equal the single-query answers, all rows the dense reference.
-    from pollen_tpu.kernels.ellscan import masked_ell_splitn_depth_batch
-
-    qb = 5
-    masks = rng.integers(0, 2, (qb, p)).astype(np.int32)
-    masks[0] = mask
-    db, ub, dhb, uhb = masked_ell_splitn_depth_batch(
-        (jnp.asarray(tall16),),
-        jnp.asarray(heavy),
-        jnp.asarray(masks),
-        ks=(k16,),
-        interpret=True,
-        pack16=True,
-    )
-    np.testing.assert_array_equal(np.asarray(db)[0], np.asarray(d_x))
-    np.testing.assert_array_equal(np.asarray(ub)[0], np.asarray(u_x))
-    for i in range(qb):
-        di, ui = masked_ell_depth_xla(
-            jnp.asarray(ell), jnp.asarray(masks[i])
-        )
+    masks = rng.integers(0, 2, (5, p)).astype(np.int32)
+    db, ub = jax.vmap(
+        lambda m: tier_depth(jnp.asarray(ell16), m, pack16=True)
+    )(jnp.asarray(masks))
+    for i in range(5):
+        di, ui = masked_ell_depth_xla(jnp.asarray(ell), jnp.asarray(masks[i]))
         np.testing.assert_array_equal(np.asarray(db)[i], np.asarray(di))
         np.testing.assert_array_equal(np.asarray(ub)[i], np.asarray(ui))
 
 
 @pytest.mark.parametrize("q", [4, 16])
 def test_ell_batch_split_three_tiers(q):
-    """The per-tier split emission of the batched query — the route
-    that lifts the r4 two-tier batch cap (the fused three-tier program
-    blows Mosaic's scoped VMEM at Q=16 and crashed the compile helper)
-    — equals the dense per-query reference on all four classes."""
-    from pollen_tpu.kernels.ellscan import (
-        masked_ell_splitn_depth_batch_split,
-    )
+    """A three-tier batched split query (tier 3 folded into the mid
+    pair) equals the dense per-query reference on all four classes."""
+    from pollen_tpu.ops.depth import seg_depth_with_uniq_ell_batch_parts
 
     k, k2, k3, p = 1, 4, 16, 48
     t1, t2, hm, c1, c2, ch = _synth_ell_split(seed=11, p=p, k=k, k2=k2)
     t3, _, _, c3, _, _ = _synth_ell_split(seed=12, p=p, k=k3)
+    dg = _split_graph(p, (t1, t2, t3), hm, (k, k2, k3))
     rng = np.random.default_rng(21)
     masks = rng.integers(0, 2, (q, p)).astype(np.int32)
-
-    outs = masked_ell_splitn_depth_batch_split(
-        (jnp.asarray(t1), jnp.asarray(t2), jnp.asarray(t3)),
-        jnp.asarray(hm),
-        jnp.asarray(masks),
-        ks=(k, k2, k3),
-        interpret=True,
+    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_batch_parts(
+        dg, jnp.asarray(masks)
     )
-    assert len(outs) == 8
-    mref = np.zeros((q, 128), np.int64)
-    mref[:, :p] = masks
-    pairs = [
-        (c1, outs[0], outs[1]),
-        (c2, outs[2], outs[3]),
-        (c3, outs[4], outs[5]),
-        (ch, outs[6], outs[7]),
-    ]
-    for cls, d, u in pairs:
-        cols = cls.shape[1]
-        np.testing.assert_array_equal(
-            np.asarray(d)[:, :cols], mref @ cls
-        )
-        np.testing.assert_array_equal(
-            np.asarray(u)[:, :cols], mref @ (cls > 0)
-        )
+    assert d2.shape[1] == t2.shape[1] + t3.shape[1]
+    _check_batch_parts(
+        (d1, u1, d2, u2, dh, uh),
+        (c1, np.concatenate([c2, c3], axis=1), ch),
+        masks,
+    )
 
 
 def test_ell_batch_kernel_no_mid_no_heavy():
-    """Batched kernel with only tier-1 present."""
-    from pollen_tpu.kernels.ellscan import masked_ell_split3_depth_batch
+    """Batched query with only tier-1 present."""
+    from pollen_tpu.ops.depth import seg_depth_with_uniq_ell_batch_parts
 
     k, p = 2, 48
     t1, _, _, c1, _, _ = _synth_ell_split(seed=5, p=p, k=k)
+    dg = _split_graph(p, (t1,), np.zeros((0, 0), np.uint8), (k,))
     rng = np.random.default_rng(2)
     masks = rng.integers(0, 2, (3, p)).astype(np.int32)
-    d1, u1, d2, u2, dh, uh = masked_ell_split3_depth_batch(
-        jnp.asarray(t1),
-        jnp.zeros((0, 0), jnp.int32),
-        jnp.zeros((0, 0), jnp.uint8),
-        jnp.asarray(masks),
-        k=k,
-        interpret=True,
+    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_batch_parts(
+        dg, jnp.asarray(masks)
     )
     assert d2 is None and dh is None
-    mref = np.zeros((3, 128), np.int64)
-    mref[:, :p] = masks
-    np.testing.assert_array_equal(
-        np.asarray(d1)[:, : c1.shape[1]], mref @ c1
-    )
-    np.testing.assert_array_equal(
-        np.asarray(u1)[:, : c1.shape[1]], mref @ (c1 > 0)
-    )
+    _check_batch_parts((d1, u1), (c1,), masks)
 
 
-def test_ell_split_heavy_rotation_paths():
-    """Both heavy store forms of the fused split kernel: a 65536-col
-    heavy block rotates at full width ((n//hw)%8==0); a 16384-col one
-    takes the full-width narrow-store path (rotation would shrink the
-    tile 4x). Both must be exact."""
-    from pollen_tpu.kernels.crossmat import masked_cross_depth_xla
-    from pollen_tpu.kernels.ellscan import (
-        SUB,
-        TALL_W,
-        masked_ell_splitn_depth,
-        pack_ell,
-        pack_ell_tall,
+@pytest.mark.parametrize("nh_pad", [65536, 16384])
+def test_heavy_nibble_widths(nh_pad):
+    """The heavy class's single-query masked column sums at wide
+    blocks equal the dense reference (the batched matmul too)."""
+    from pollen_tpu.kernels.crossmat import (
+        batched_cross_depth,
+        masked_cross_depth_xla,
     )
 
     rng = np.random.default_rng(61)
-    k, nl, p = 1, SUB * TALL_W, 96
-    run_col = np.arange(0, nl, 3)
-    run_path = rng.integers(0, p, run_col.size).astype(np.int32)
-    run_count = rng.integers(1, 9, run_col.size).astype(np.int32)
-    tall = pack_ell_tall(
-        pack_ell(run_path, run_count, run_col,
-                 np.zeros_like(run_col), k, nl)
-    )
     p_pad = 128
-    mask = rng.integers(0, 2, p).astype(np.int32)
-    mp = np.zeros(p_pad, np.int32)
-    mp[:p] = mask
-    for nh_pad in (65536, 16384):
-        heavy = rng.integers(0, 256, (p_pad // 2, nh_pad)).astype(
-            np.uint8
-        )
-        outs = masked_ell_splitn_depth(
-            (jnp.asarray(tall),),
-            jnp.asarray(heavy),
-            jnp.asarray(mask),
-            ks=(k,),
-            interpret=True,
-        )
-        dh, uh = outs[-2], outs[-1]
-        d_hx, u_hx = masked_cross_depth_xla(
-            jnp.asarray(heavy), jnp.asarray(mp), nibble=True
-        )
-        np.testing.assert_array_equal(np.asarray(dh), np.asarray(d_hx))
-        np.testing.assert_array_equal(np.asarray(uh), np.asarray(u_hx))
+    heavy = rng.integers(0, 256, (p_pad // 2, nh_pad)).astype(np.uint8)
+    dense = np.zeros((p_pad, nh_pad), np.int64)
+    dense[0::2] = heavy & 15
+    dense[1::2] = heavy >> 4
+    mask = rng.integers(0, 2, p_pad).astype(np.int32)
+    dh, uh = masked_cross_depth_xla(
+        jnp.asarray(heavy), jnp.asarray(mask), nibble=True
+    )
+    np.testing.assert_array_equal(np.asarray(dh), mask @ dense)
+    np.testing.assert_array_equal(np.asarray(uh), mask @ (dense > 0))
+    db, ub = batched_cross_depth(
+        jnp.asarray(heavy), jnp.asarray(mask[None]), nibble=True
+    )
+    np.testing.assert_array_equal(np.asarray(db)[0], mask @ dense)
+    np.testing.assert_array_equal(np.asarray(ub)[0], mask @ (dense > 0))
+
+
+@pytest.mark.gpu
+def test_masked_routes_on_gpu(gpu):
+    """Every masked-depth route, compiled for the GPU, equals the
+    arena bincount on a Zipf graph with ELL, heavy and matrix classes."""
+    import bench
+    from pollen_tpu.ops import depth as D
+
+    g = bench.synth_graph(2**16, 2**12, 96)
+    dg = build_device_graph(g, cross_matrix="always")
+    mask = np.random.default_rng(3).integers(0, 2, 96).astype(bool)
+    want = _brute_depth(g, mask)
+    for impl in ("ell", "cross", "runs", "xla"):
+        got = D._MASKED_IMPLS[impl](dg, jnp.asarray(mask))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), b, impl)

@@ -146,36 +146,35 @@ def test_batched_queries(graph_path, arena):
 
 
 def test_cost_model_routing():
-    """The masked-impl cost model routes realistic shapes to the
-    measured-cheapest index (regression guard: round 2's 16 B/step
-    scan constant was ~24x optimistic and could route graphs onto a
-    10x-slower path)."""
+    """Masked queries route to the first resident index of ELL, the
+    crossing matrix, the run-level index and the step list."""
     import bench as bench_mod
 
-    # Small-N Zipf shape: the dense matrix is genuinely cheapest (its
-    # bytes scale with N*P; ELL pays a fixed per-run VPU cost).
+    # Zipf shapes build both resident indexes; the ELL index serves.
     _, dg_small = bench_mod.synth_device_graph(2**18, 2**14, 64)
-    assert depth_op._best_masked_impl(dg_small) == "cross"
-
-    # The bench shape: the tiered ELL must win (measured 15.4 us vs
-    # the dense matrix's 47 us).
+    assert dg_small.cross_matrix.size and dg_small.cross_ell.size
+    assert depth_op._best_masked_impl(dg_small) == "ell"
     _, dg = bench_mod.synth_device_graph(2**22, 2**18, 128)
     assert dg.cross_ell.size
     assert depth_op._best_masked_impl(dg) == "ell"
 
-    # With both resident indexes suppressed, only the scan family
-    # remains, and the fused kernel must beat the XLA pipeline.
+    # With both resident indexes suppressed, the run-level index
+    # serves; projections without it fall to the step list.
     import os
 
     os.environ["POLLEN_CROSS_BUDGET_MB"] = "0"
     try:
-        _, dg2 = bench_mod.synth_device_graph(2**18, 2**14, 64)
+        _, dg2 = bench_mod.synth_device_graph(2**18, 2**14, 64, "host")
     finally:
         del os.environ["POLLEN_CROSS_BUDGET_MB"]
     assert dg2.cross_matrix.size == 0 and dg2.cross_ell.size == 0
-    costs = depth_op._masked_impl_costs(dg2)
-    assert costs["scan"] < costs["xla"]
-    assert depth_op._best_masked_impl(dg2) in ("scan", "runs")
+    assert depth_op._best_masked_impl(dg2) == "runs"
+    assert depth_op._best_masked_impl(
+        bench_mod.project_host(dg2, "xla")
+    ) == "xla"
+    assert depth_op._best_masked_impl(
+        bench_mod.project_host(dg_small, "cross")
+    ) == "cross"
 
 
 def test_ell_batch_matches_per_query():
@@ -203,8 +202,8 @@ def test_ell_batch_matches_per_query():
 
 def test_batch_router_prefers_ell():
     """seg_depth_with_uniq_batch routes through the batched ELL path
-    when the cost model picks the ELL index (regression: batches used
-    to regress to the crossing matrix / runs vmap)."""
+    when the router picks the ELL index (regression: batches used to
+    regress to the crossing matrix / runs vmap)."""
     import jax.numpy as jnp
 
     import bench
@@ -352,16 +351,22 @@ def test_three_tier_sharded_exact(monkeypatch):
 
 
 def test_cost_model_high_path_corner():
-    """P >= 2^16 paths: the int16 slot packing bars the ELL index and
-    the crossing matrix outgrows its budget — only the scan family
-    remains, and the fused kernel must be the pick."""
+    """P >= 2^16 paths: the int16 slot packing bars the ELL index, so
+    the next resident index serves — and answers exactly."""
+    import jax.numpy as jnp
+
     import bench as bench_mod
 
     _, dg = bench_mod.synth_device_graph(2**16, 2**10, 70000)
     assert dg.cross_ell.size == 0  # int16 packing bar
-    costs = depth_op._masked_impl_costs(dg)
-    assert "ell" not in costs
-    assert depth_op._best_masked_impl(dg) in ("scan", "runs", "cross")
+    assert depth_op._best_masked_impl(dg) in ("cross", "runs")
+    rng = np.random.default_rng(3)
+    mask = jnp.asarray(rng.integers(0, 2, dg.num_paths).astype(bool))
+    impl = depth_op._MASKED_IMPLS[depth_op._best_masked_impl(dg)]
+    d, u = impl(dg, mask)
+    d_x, u_x = depth_op.seg_depth_with_uniq_masked(dg, mask)
+    np.testing.assert_array_equal(np.asarray(d), np.asarray(d_x))
+    np.testing.assert_array_equal(np.asarray(u), np.asarray(u_x))
 
 
 def test_batch_objective_plan_exact():
@@ -395,7 +400,7 @@ def test_batch_objective_plan_exact():
 
 
 def test_ell_batch_chunking():
-    """Batches past ELL_BATCH_CHUNK split into VMEM-sized kernel calls
+    """Batches past ELL_BATCH_CHUNK split into chunk-sized device calls
     with identical results."""
     import jax.numpy as jnp
 
@@ -438,17 +443,15 @@ def test_pack16_ab_equivalence(monkeypatch):
             dg32, jnp.asarray(mask.astype(bool))
         )
         for dg in (dg16, dg32):
-            d, u = depth_op.seg_depth_with_uniq_ell(
-                dg, jnp.asarray(mask), pallas=False
-            )
+            d, u = depth_op.seg_depth_with_uniq_ell(dg, jnp.asarray(mask))
             np.testing.assert_array_equal(np.asarray(d), np.asarray(d_ref))
             np.testing.assert_array_equal(np.asarray(u), np.asarray(u_ref))
     masks = rng.integers(0, 2, (5, dg16.num_paths)).astype(np.int32)
     d16, u16 = depth_op.seg_depth_with_uniq_ell_batch(
-        dg16, jnp.asarray(masks), pallas=False
+        dg16, jnp.asarray(masks)
     )
     d32, u32 = depth_op.seg_depth_with_uniq_ell_batch(
-        dg32, jnp.asarray(masks), pallas=False
+        dg32, jnp.asarray(masks)
     )
     np.testing.assert_array_equal(d16, d32)
     np.testing.assert_array_equal(u16, u32)

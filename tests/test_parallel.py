@@ -25,7 +25,7 @@ def mesh():
 
 
 def test_mesh_shape(mesh):
-    assert mesh.shape == {"host": 2, "chip": 4}
+    assert mesh.shape == {"host": 1, "chip": 8}
 
 
 def test_sharded_depth_matches_single(graph_path, mesh):
@@ -227,62 +227,78 @@ def test_sharded_cross_overflow(mesh):
     assert np.asarray(u_c)[:2].tolist() == [1, 1]
 
 
-def test_sharded_fused_scan_matches_single(mesh):
-    """The per-shard fused Pallas scan (interpret mode on the CPU mesh)
-    with the head-carry lookback must match the XLA sharded pipeline
-    and the single-device reference, on a graph whose (segment, path)
-    groups straddle chunk boundaries."""
-    from pollen_tpu.kernels.segscan import BLOCK
-    from pollen_tpu.parallel.sharded import sharded_seg_depth_fused_fn
-
-    rng = np.random.default_rng(11)
-    n_steps, n_segs, n_paths = 4 * BLOCK, 200, 24
+def test_sharded_scan_straddling_zipf(mesh):
+    """The step-sharded XLA scan (all-gather lookback carry + psum)
+    matches the single-device reference on a Zipf graph whose
+    (segment, path) groups straddle chunk boundaries."""
     import bench
 
+    rng = np.random.default_rng(11)
+    n_steps, n_segs, n_paths = 4 * 16384, 200, 24
     _, dg = bench.synth_device_graph(n_steps, n_segs, n_paths)
-    sg = shard_device_graph(dg, mesh, block=BLOCK)
-    assert sg.chunk % BLOCK == 0
-    # Zipf crossings guarantee straddles; confirm at least one.
+    sg = shard_device_graph(dg, mesh)
     rs = np.asarray(sg.run_start)
     starts = [sg.chunk * d for d in range(1, mesh.size)]
     assert any(rs[s] < s for s in starts), "no straddling group"
 
     mask = np.zeros(n_paths + 1, np.int32)
     mask[:n_paths] = rng.integers(0, 2, n_paths)
-    q_fused = sharded_seg_depth_fused_fn(mesh, interpret=True)
-    q_xla = sharded_seg_depth_fn(mesh)
-    d_f, u_f = q_fused(sg, jnp.asarray(mask))
-    d_x, u_x = q_xla(sg, jnp.asarray(mask))
+    d_x, u_x = sharded_seg_depth_fn(mesh)(sg, jnp.asarray(mask))
     d_1, u_1 = depth_op.seg_depth_with_uniq_masked(
         dg, jnp.asarray(mask[:-1].astype(bool))
     )
-    np.testing.assert_array_equal(np.asarray(d_f), np.asarray(d_1))
-    np.testing.assert_array_equal(np.asarray(u_f), np.asarray(u_1))
     np.testing.assert_array_equal(np.asarray(d_x), np.asarray(d_1))
     np.testing.assert_array_equal(np.asarray(u_x), np.asarray(u_1))
 
 
-def test_head_carry_kernel_semantics():
-    """masked_depth_cumsums with head_carry: the first-selected flag of
-    a left-straddling group must not fire when the carry says selected
-    steps already occurred to the left."""
-    from pollen_tpu.kernels.segscan import BLOCK, masked_depth_cumsums
+def test_sharded_scatter_straddling_zipf(mesh):
+    """The reduce-scatter output form on the same straddling graph
+    gathers to the single-device answer."""
+    import bench
+    from pollen_tpu.parallel.sharded import sharded_seg_depth_scatter_fn
 
-    # One group spanning the whole (local) chunk, path 3 selected.
-    path = np.full(BLOCK, 3, np.int32)
-    rs = np.full(BLOCK, -5, np.int32)  # group began 5 positions left
-    mask = np.zeros(128, np.int32)
-    mask[3] = 1
-    _, csf0 = masked_depth_cumsums(
-        jnp.asarray(path), jnp.asarray(rs), jnp.asarray(mask),
-        interpret=True, head_carry=jnp.int32(0),
+    _, dg = bench.synth_device_graph(4 * 16384, 200, 24)
+    sg = shard_device_graph(dg, mesh)
+    mask = np.ones(25, np.int32)
+    mask[-1] = 0
+    mask[::3] = 0
+    d_s, u_s = sharded_seg_depth_scatter_fn(mesh)(sg, jnp.asarray(mask))
+    d_1, u_1 = depth_op.seg_depth_with_uniq_masked(
+        dg, jnp.asarray(mask[:-1].astype(bool))
     )
-    _, csf2 = masked_depth_cumsums(
-        jnp.asarray(path), jnp.asarray(rs), jnp.asarray(mask),
-        interpret=True, head_carry=jnp.int32(2),
-    )
-    assert int(csf0[-1]) == 1  # carry 0: this chunk holds the first
-    assert int(csf2[-1]) == 0  # carry 2: first fired on a left device
+    n = dg.num_segments
+    np.testing.assert_array_equal(np.asarray(d_s).reshape(-1)[:n], np.asarray(d_1))
+    np.testing.assert_array_equal(np.asarray(u_s).reshape(-1)[:n], np.asarray(u_1))
+
+
+@pytest.mark.parametrize("n_dev", [1, 4, 8])
+def test_make_mesh_default_shape(n_dev):
+    """The default mesh has one host row per process and every given
+    device on the chip axis, in order."""
+    m = make_mesh(jax.devices()[:n_dev])
+    assert dict(m.shape) == {"host": jax.process_count(), "chip": n_dev}
+    assert list(m.devices.reshape(-1)) == jax.devices()[:n_dev]
+
+
+def test_make_mesh_rejects_uneven_hosts():
+    with pytest.raises(ValueError):
+        make_mesh(jax.devices()[:6], hosts=4)
+
+
+def test_check_sharded_generated_graph():
+    """__graft_entry__.check_sharded runs every sharded path on a
+    generated graph and compares each with the single-device answer."""
+    import bench
+    from __graft_entry__ import check_sharded
+    from pollen_tpu.device import build_device_graph
+
+    g = bench.synth_graph(2**14, 2**10, 48, links=True)
+    dg = build_device_graph(g, device="host")
+    report, straddles = check_sharded(jax.devices()[:4], dg)
+    names = [name for name, _, _ in report]
+    assert names[:2] == ["scan", "scan-scatter"] and "degree" in names
+    assert "cross" in names and "ell" in names
+    assert straddles > 0
 
 
 def test_sharded_residual_wrap_regression(mesh):

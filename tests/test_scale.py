@@ -84,9 +84,11 @@ def test_chr8_shaped_synthetic():
           f"ks=({dg.ell_k},{dg.ell_k2},{dg.ell_k3})")
     if dg.cross_ell.size:
         assert sum(classes) <= n_segs
-        from pollen_tpu.kernels.ellscan import COUNT_MAX, unfold_ell_tall
+        from pollen_tpu.kernels.ellscan import COUNT_MAX, unpair_ell16
 
-        flat = unfold_ell_tall(np.asarray(dg.cross_ell), dg.ell_k)
+        flat = np.asarray(dg.cross_ell)
+        if dg.ell_pack16:
+            flat = unpair_ell16(flat)
         assert int((flat & COUNT_MAX).max()) <= COUNT_MAX
         assert int((flat >> 16).max()) < 2**16
 
@@ -98,7 +100,7 @@ def test_chr8_shaped_synthetic():
     d, u = depth_op.seg_depth_with_uniq_masked(dg, jnp.asarray(mask))
     d = np.asarray(d)
     q_time = time.perf_counter() - t0
-    print(f"chr8-shaped masked depth (xla, cpu): {q_time:.1f}s")
+    print(f"chr8-shaped masked depth (step pipeline): {q_time:.1f}s")
 
     steps_seg = np.asarray(g.steps) >> 1
     bounds = np.asarray(g.path_steps)
@@ -112,7 +114,7 @@ def test_chr8_shaped_synthetic():
     # natural order via the host un-permute entry.
     if dg.cross_ell.size:
         d_e, u_e = depth_op.seg_depth_with_uniq_ell(
-            dg, jnp.asarray(mask.astype(np.int32)), pallas=False
+            dg, jnp.asarray(mask.astype(np.int32))
         )
         np.testing.assert_array_equal(np.asarray(d_e), want)
 
@@ -129,7 +131,7 @@ def test_validate_corpus_dry_run(tmp_path):
     from graphgen import big_step_graph
 
     fixture.write_text(big_step_graph(500, 20000, 8, seed=3))
-    env = dict(os.environ, POLLEN_DEVICE="cpu", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [
             sys.executable,
